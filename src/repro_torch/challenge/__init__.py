@@ -1,0 +1,24 @@
+"""repro_torch.challenge — the end-to-end Anonymized Network Sensing workload
+on PyTorch (the port of ``repro.challenge``).  CLI:
+
+    PYTHONPATH=src python -m repro_torch.challenge.run --scale 20
+"""
+from .pipeline import (
+    ChallengeConfig,
+    ChallengePhaseTimings,
+    ChallengeResults,
+    ChallengeRun,
+    analyze,
+    cross_window_ip_overlap,
+    run_challenge,
+)
+
+__all__ = [
+    "ChallengeConfig",
+    "ChallengePhaseTimings",
+    "ChallengeResults",
+    "ChallengeRun",
+    "analyze",
+    "cross_window_ip_overlap",
+    "run_challenge",
+]

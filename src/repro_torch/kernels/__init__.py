@@ -1,0 +1,3 @@
+"""The port's kernels: hand-written CUDA for Hopper (``csrc/``), their
+ctypes wrappers, plain PyTorch versions (``ref``) and the dispatching entry
+points (``ops``)."""
