@@ -7,28 +7,53 @@ Run from the root of a checkout, with no arguments:
 
 Phases (any failure exits non-zero):
 
-1. Card and build: print the card's name and power limit, build the CUDA
-   source ``src/repro_torch/kernels/csrc/histogram.cu``.
+1. Card and build: print the card's name and power limit, build the three
+   CUDA sources under ``src/repro_torch/kernels/csrc/`` in parallel (one
+   ``nvcc`` each) and print each ``-Xptxas -v`` report.
 2. Kernels against their plain versions on the card, at the main path's
-   shapes: the histogram kernel on 2^24 rows into 8,192 float bins and as a
-   gated int32 sum into 2^24 + 1 segments (bit-equal, and timed beside the
-   plain version, ``torch.bincount`` and the bytes bound), plus the
-   ``init``/``valid_mask``/``retire`` epilogue, ``n == 0``, out-of-range
-   ids and random float weights (to a stated tolerance).
-3. The main path: ``run_challenge`` at scale 24 with ``method="hash"``,
-   once with the defaults and once with ``fused_epilogue=True``, each
-   checked against the NumPy oracle, the two checked identical, and the
-   kernel's launch count checked against the count the code implies.
-4. The CLI, ``python -m repro_torch.challenge.run``, with its defaults
-   (the card, shuffle anonymization) at scale 20: exit 0 and the oracle line.
+   shapes, each shape timed beside the plain version, one PyTorch call that
+   computes the same function and the bytes bound:
+   * histogram: 2^24 rows into 8,192 float bins and a gated int32 sum into
+     2^24 + 1 segments (bit-equal), the ``init``/``valid_mask``/``retire``
+     epilogue, ``n == 0``, out-of-range ids and random float weights (to a
+     stated tolerance); PageRank's plus-times vxm, 2^20 float32 products
+     into 2^21 vertex slots with ``valid_mask``/``retire`` (to the same
+     tolerance), and the triangle census's int32 roll-up of 2^20 counts
+     into 2^21 segments (bit-equal);
+   * segment max: the vxm's 2^20 values into 2^21 vertex slots with
+     ``valid_mask``/``retire=-inf``, the HyperLogLog fold's 2^15 rows into
+     4,096 registers with ``init``, and the gate, ``n == 0``, out-of-range
+     ids, ±inf, -0.0 and random floats: all bit-equal;
+   * Count-Min: int32 (4, 4096) cells with 2^15 proposals and counts past
+     2^24, float32 cells, all proposals masked, ``n == 0``: all bit-equal.
+3. The main path at scale 24: ``run_challenge`` with ``method="hash"``, with
+   the defaults and with ``fused_epilogue=True``, each checked against the
+   NumPy oracle, the two checked identical, the histogram kernel's launches
+   checked against the count the code implies; then the sketch tier over
+   the same capture (``run_sketch_tier``: 512 micro-batches of 2^15 rows),
+   every estimate within its bound, 2 Count-Min and 3 segment-max launches
+   per batch.
+4. The graph-algorithm pass at scale 20: ``run_challenge(algorithms=True)``
+   checked against the NumPy oracles and the launch counts the code
+   implies, BFS again from the heaviest link's source (at least 3 levels),
+   and each algorithm timed on its own.  Scale 20, not 24: the triangle
+   census scans the live rows in blocks (about n_rows / 63 steps over every
+   entry), and the NumPy oracles walk the edges in Python.
+5. The CLI, ``python -m repro_torch.challenge.run --algorithms --tier both``,
+   with its other defaults (the card, shuffle anonymization) at scale 18:
+   exit 0, all three oracle lines and every kernel launched.
 
-Then it prints one JSON line of kernel records, the card line again, and as
-its last line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
-outside a checkout (no ``src/repro_torch``), it exits non-zero before
-printing any result.
+Then it prints one JSON line of kernel records, whose launch counts are
+those of the main path's runs (phases 3, 4 and 5, without the algorithms
+timed on their own), the card line again, and as its last line
+``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
+checkout (no ``src/repro_torch``), it exits non-zero before printing any
+result.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
@@ -36,15 +61,21 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 SCALE = 24                  # 2^24 packets; the full challenge capture is 2^30
+ALGO_SCALE = 20             # the graph-algorithm pass (docstring, phase 4)
+CLI_SCALE = 18
 N_WINDOWS, IP_BINS = 8, 1024
+SKETCH_BATCH = 1 << 15      # run_sketch_tier's micro-batch
+SOURCES = ("histogram", "segreduce", "sketch")
 # The bound of each timed shape is its bytes (each input read once, each
 # output written once) over the H100 SXM's memory rate; its operations, one
-# add per row, would take n / 67e12 s at the float32 peak, some 160x less.
+# add or compare per row, would take n / 67e12 s at the float32 peak, some
+# 160x less.
 HBM_BYTES_PER_S = 3.35e12
 REPS = 20
 
@@ -61,14 +92,32 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def build_kernel() -> None:
+def build_kernels() -> None:
+    """Build every CUDA source at once, one nvcc process each."""
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
-    lib = build.build("histogram")
-    log(f"built histogram.cu in {time.perf_counter() - t0:.1f} s")
-    log(f"--- {lib.name}: nvcc -Xptxas -v\n"
-        + lib.with_suffix(".log").read_text().strip())
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        libs = list(pool.map(build.build, SOURCES))
+    log(f"built {', '.join(s + '.cu' for s in SOURCES)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for lib in libs:
+        log(f"--- {lib.name}: nvcc -Xptxas -v\n"
+            + lib.with_suffix(".log").read_text().strip())
+
+
+def reset_launches() -> None:
+    from repro_torch.kernels import histogram, segreduce, sketch
+
+    for mod in (histogram, segreduce, sketch):
+        mod.LAUNCHES = 0
+
+
+def read_launches() -> dict:
+    from repro_torch.kernels import histogram, segreduce, sketch
+
+    return {"histogram": histogram.LAUNCHES, "segment_max": segreduce.LAUNCHES,
+            "cms_update": sketch.LAUNCHES}
 
 
 def time_ms(fn) -> float:
@@ -87,7 +136,17 @@ def time_ms(fn) -> float:
     return start.elapsed_time(end) / REPS
 
 
-def check_kernels(dev):
+def same(name, got, want):
+    """Bit-equal (``torch.equal``: -0.0 == 0.0), or raise."""
+    import torch
+
+    if got.dtype != want.dtype or not torch.equal(got, want):
+        diff = (got.double() - want.double()).abs().nan_to_num().max().item()
+        raise AssertionError(f"{name}: kernel != plain (max |diff| {diff})")
+    log(f"  {name}: bit-equal")
+
+
+def check_histogram(dev):
     """Phase 2: the histogram kernel against its plain version on the card.
 
     Returns (max_abs_err, timed shape records)."""
@@ -100,12 +159,6 @@ def check_kernels(dev):
     n = 1 << SCALE
     max_err = 0.0
     shapes = []
-
-    def same(name, got, want):
-        if not torch.equal(got, want):
-            diff = (got.double() - want.double()).abs().max().item()
-            raise AssertionError(f"{name}: kernel != plain (max |diff| {diff})")
-        log(f"  {name}: bit-equal")
 
     # (a) the default path's activity histogram: 2^24 rows, 8,192 flat bins,
     # integer-valued float weights (exact in any summation order)
@@ -189,39 +242,233 @@ def check_kernels(dev):
     max_err = max(max_err, err.max().item())
     log(f"  (f) random float weights: max |diff| {err.max().item():.3g} "
         f"(tolerance 2 * {k_max} * 2^-24 * sum|w| per bin)")
+
+    # (n) PageRank's plus-times vxm at scale 20: 2^20 non-integer float32
+    # products into the 2^21 vertex slots, -1 marking a dropped entry, the
+    # slots of dead vertices retired to 0; the tolerance of (f)
+    m, segs = 1 << ALGO_SCALE, 2 << ALGO_SCALE
+    prod = torch.rand(m, generator=g, device=dev) * rand(1, 5, m)
+    seg = torch.where(rand(0, 8, m) == 0, -1, rand(0, segs, m))
+    live = rand(0, 4, segs) != 0
+    kw = dict(op="sum", valid_mask=live, retire=0.0)
+    kern = lambda: segmented_reduce(prod, seg, segs, backend="cuda", **kw)
+    plain = lambda: segmented_reduce(prod, seg, segs, backend="torch", **kw)
+    got, want = kern().double(), plain().double()
+    spill = torch.where(seg >= 0, seg, segs).long()
+    k_max = torch.bincount(spill, minlength=segs + 1)[:segs].max().item()
+    abs_sum = torch.zeros(segs + 1, dtype=torch.float64, device=dev).index_add_(
+        0, spill, prod.double())[:segs]
+    err = (got - want).abs()
+    if not bool((err <= 2 * k_max * 2.0 ** -24 * abs_sum).all()):
+        raise AssertionError(f"(n) PageRank vxm: max |diff| {err.max().item()} "
+                             "beyond tolerance")
+    max_err = max(max_err, err.max().item())
+    log(f"  (n) PageRank vxm: 2^{ALGO_SCALE} float32 products -> "
+        f"2^{ALGO_SCALE + 1} segments, valid_mask/retire: max |diff| "
+        f"{err.max().item():.3g} (tolerance 2 * {k_max} * 2^-24 * sum|w| per bin)")
+    shapes.append({
+        "case": f"n: vals float32 (2^{ALGO_SCALE},), seg int32, "
+                f"2^{ALGO_SCALE + 1} segments, valid_mask",
+        "ms": time_ms(kern), "plain_ms": time_ms(plain),
+        "library_ms": time_ms(lambda: torch.zeros(segs + 1, device=dev)
+                              .index_add_(0, spill, prod)),
+        "bound_ms": (8 * m + 4 * segs + segs) / HBM_BYTES_PER_S * 1e3,
+    })
+
+    # (o) the triangle census's per-node roll-up at scale 20: int32 wedge
+    # counts of 2^20 entries, grouped by source row, padding entries -1, into
+    # 2^21 int32 segments: bit-equal
+    live_e = m - m // 8
+    counts = rand(0, 40, m)
+    seg = torch.cat([torch.sort(rand(0, segs, live_e))[0],
+                     torch.full((m - live_e,), -1, dtype=torch.int32, device=dev)])
+    kw = dict(op="sum", out_dtype=torch.int32)
+    kern = lambda: segmented_reduce(counts, seg, segs, backend="cuda", **kw)
+    plain = lambda: segmented_reduce(counts, seg, segs, backend="torch", **kw)
+    same(f"(o) triangle roll-up: 2^{ALGO_SCALE} int32 counts -> "
+         f"2^{ALGO_SCALE + 1} int32 segments, ids -1", kern(), plain())
+    spill = torch.where(seg >= 0, seg, segs).long()
+    shapes.append({
+        "case": f"o: counts int32 (2^{ALGO_SCALE},), seg int32, "
+                f"2^{ALGO_SCALE + 1} int32 segments",
+        "ms": time_ms(kern), "plain_ms": time_ms(plain),
+        "library_ms": time_ms(lambda: torch.zeros(segs + 1, dtype=torch.int32,
+                                                  device=dev)
+                              .index_add_(0, spill, counts)),
+        "bound_ms": (8 * m + 4 * segs) / HBM_BYTES_PER_S * 1e3,
+    })
     return max_err, shapes
+
+
+def _floats(g, n, dev):
+    """Normal floats with ±inf, -0.0 and 0.0 mixed in (one in ten)."""
+    import torch
+
+    v = torch.randn(n, generator=g, device=dev)
+    special = torch.tensor([float("inf"), float("-inf"), -0.0, 0.0], device=dev)
+    pick = torch.randint(0, 10, (n,), generator=g, device=dev) == 0
+    return torch.where(
+        pick, special[torch.randint(0, 4, (n,), generator=g, device=dev)], v)
+
+
+def check_segment_max(dev):
+    """Phase 2: the segment-max kernel against its plain version, bit-equal
+    (max is exact in any order).  Returns (max_abs_err, timed shapes)."""
+    import torch
+    from repro_torch.kernels.ops import hll_update, segmented_reduce
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    rand = lambda lo, hi, n: torch.randint(lo, hi, (n,), generator=g,
+                                           device=dev, dtype=torch.int32)
+    shapes = []
+
+    def timed(case, kern, plain, library, n, segs, extra_bytes):
+        shapes.append({
+            "case": case, "ms": time_ms(kern), "plain_ms": time_ms(plain),
+            "library_ms": time_ms(library),
+            "bound_ms": (8 * n + 4 * segs + extra_bytes) / HBM_BYTES_PER_S * 1e3,
+        })
+
+    # (g) the vxm of BFS and components at scale 20: 2^20 entries (negated
+    # distances or labels, inf where the frontier is off) into the 2^21
+    # vertex slots, masked-out slots retired to -inf; -1 marks a dropped entry
+    n, segs = 1 << ALGO_SCALE, 2 << ALGO_SCALE
+    vals = _floats(g, n, dev)
+    seg = torch.where(rand(0, 8, n) == 0, -1, rand(0, segs, n))
+    mask = rand(0, 4, segs) != 0
+    kw = dict(op="max", valid_mask=mask, retire=float("-inf"))
+    kern = lambda: segmented_reduce(vals, seg, segs, backend="cuda", **kw)
+    plain = lambda: segmented_reduce(vals, seg, segs, backend="torch", **kw)
+    same(f"(g) vxm: 2^{ALGO_SCALE} values -> 2^{ALGO_SCALE + 1} segments, "
+         "valid_mask/retire", kern(), plain())
+    spill = torch.where(seg >= 0, seg, segs).long()
+    timed(f"g: vals float32 (2^{ALGO_SCALE},), seg int32, 2^{ALGO_SCALE + 1} "
+          "segments, valid_mask",
+          kern, plain,
+          lambda: torch.full((segs + 1,), float("-inf"), device=dev)
+          .scatter_reduce_(0, spill, vals, "amax"),
+          n, segs, segs)
+
+    # (h) the HyperLogLog fold: 2^15 rows into 4,096 registers with init
+    m = 4096
+    regs = rand(0, 20, m).float()
+    reg_ids = torch.where(rand(0, 16, SKETCH_BATCH) == 0, -1, rand(0, m, SKETCH_BATCH))
+    rhos = rand(1, 22, SKETCH_BATCH)
+    kern = lambda: hll_update(regs, reg_ids, rhos, backend="cuda")
+    plain = lambda: hll_update(regs, reg_ids, rhos, backend="torch")
+    same("(h) HLL fold: 2^15 rows -> 4,096 registers with init", kern(), plain())
+    spill_h = torch.where(reg_ids >= 0, reg_ids, m).long()
+    regs_spill = torch.cat([regs, regs.new_full((1,), float("-inf"))])
+    rhos_f = rhos.float()
+    timed("h: rho int32 (2^15,), reg ids int32, 4,096 registers, init",
+          kern, plain,
+          lambda: regs_spill.clone().scatter_reduce_(0, spill_h, rhos_f, "amax"),
+          SKETCH_BATCH, m, 4 * m)
+
+    # (i) the epilogues on both kernel paths, no rows, out-of-range ids
+    for nseg in (1000, 4096, 20000):
+        k = 1 << 18
+        ids = rand(-100, nseg + 100, k)
+        v = _floats(g, k, dev)
+        cases = {
+            "plain": {},
+            "gate": dict(gate_ids=rand(0, 3, k), gate_value=1),
+            "init + valid_mask/retire": dict(init=_floats(g, nseg, dev),
+                                             valid_mask=rand(0, 2, nseg).bool(),
+                                             retire=-2.5),
+        }
+        for name, kw in cases.items():
+            same(f"(i) {nseg} segments, ids in [-100, {nseg}+100), {name}",
+                 segmented_reduce(v, ids, nseg, op="max", backend="cuda", **kw),
+                 segmented_reduce(v, ids, nseg, op="max", backend="torch", **kw))
+    empty = torch.empty(0, dtype=torch.int32, device=dev)
+    init = _floats(g, 64, dev)
+    mask = rand(0, 2, 64).bool()
+    for kw in (dict(), dict(init=init), dict(init=init, valid_mask=mask, retire=7.0)):
+        same(f"(i) n == 0 with {sorted(kw)}",
+             segmented_reduce(empty.float(), empty, 64, op="max", backend="cuda", **kw),
+             segmented_reduce(empty.float(), empty, 64, op="max", backend="torch", **kw))
+    return 0.0, shapes
+
+
+def check_cms(dev):
+    """Phase 2: the Count-Min kernel against its plain version, bit-equal.
+    Returns (max_abs_err, timed shapes)."""
+    import torch
+    from repro_torch.kernels.ops import cms_update
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    rand = lambda lo, hi, *shape: torch.randint(lo, hi, shape, generator=g,
+                                                device=dev, dtype=torch.int32)
+    depth, width, n = 4, 4096, SKETCH_BATCH
+    shapes = []
+    # (j) the sketch tier's shape: int32 cells, counts past 2^24, a quarter
+    # of the proposals masked (-1) as padding and empty groups are
+    counts = rand(0, 1 << 26, depth, width)
+    cols = torch.where(rand(0, 4, 1, n) == 0, -1, rand(0, width, depth, n))
+    props = rand(0, 1 << 27, n)
+    kern = lambda: cms_update(counts, cols, props, backend="cuda")
+    plain = lambda: cms_update(counts, cols, props, backend="torch")
+    same("(j) int32 (4, 4096) cells, 2^15 proposals, counts past 2^24",
+         kern(), plain())
+    keep = cols >= 0
+    flat = (torch.arange(depth, device=dev)[:, None] * width + cols)[keep].long()
+    flat_props = props.expand(depth, n)[keep]
+    flat_counts = counts.reshape(-1)
+    shapes.append({
+        "case": "j: cells int32 (4, 4096), col ids int32 (4, 2^15), "
+                "proposals int32 (2^15,)",
+        "ms": time_ms(kern), "plain_ms": time_ms(plain),
+        "library_ms": time_ms(lambda: flat_counts.clone().scatter_reduce_(
+            0, flat, flat_props, "amax")),
+        "bound_ms": (4 * depth * n + 4 * n + 8 * depth * width)
+        / HBM_BYTES_PER_S * 1e3,
+    })
+    # (k) float32 cells; (l) every proposal masked; (m) no proposals
+    fcounts = _floats(g, depth * width, dev).reshape(depth, width)
+    fprops = _floats(g, n, dev)
+    same("(k) float32 cells", cms_update(fcounts, cols, fprops, backend="cuda"),
+         cms_update(fcounts, cols, fprops, backend="torch"))
+    masked = torch.full_like(cols, -1)
+    same("(l) all proposals masked", cms_update(counts, masked, props, backend="cuda"),
+         counts)
+    none = torch.empty((depth, 0), dtype=torch.int32, device=dev)
+    same("(m) n == 0", cms_update(counts, none, props[:0], backend="cuda"), counts)
+    return 0.0, shapes
 
 
 def main_path(dev, workdir: str):
     """Phase 3: the port's challenge run at scale 24, default and fused,
-    sharing one capture in ``workdir``."""
+    sharing one capture in ``workdir``; then the sketch tier over it."""
     import numpy as np
     import torch
     from repro_torch.challenge.pipeline import (ChallengeConfig, _window_activity,
                                                 run_challenge)
-    from repro_torch.challenge.run import format_queries, verify_scalars
+    from repro_torch.challenge.run import (format_queries, format_sketch,
+                                           run_sketch_tier, verify_scalars,
+                                           verify_sketch)
     from repro_torch.convert import results_to_numpy
     from repro_torch.core.ref import ref_run_all_queries
-    from repro_torch.kernels import histogram as hist_kernel
+    from repro_torch.core.sketch import SketchConfig
 
     runs, launches = {}, {}
     for name, fused in (("default", False), ("fused_epilogue", True)):
         cfg = ChallengeConfig(scale=SCALE, method="hash", fused_epilogue=fused,
                               n_windows=N_WINDOWS, ip_bins=IP_BINS,
                               workdir=workdir, device=str(dev))
-        hist_kernel.LAUNCHES = 0
+        reset_launches()
         run = run_challenge(cfg)
-        launches[name] = hist_kernel.LAUNCHES
+        launches[name] = read_launches()
         # per analyze call: the activity histogram, plus with the fused
         # epilogue 4 gated sums per window per plan side and the top-k sum;
         # the warm pass runs analyze a second time
         per_analyze = 1 + (2 * N_WINDOWS * 4 + 1 if fused else 0)
-        want = per_analyze * (2 if cfg.warm else 1)
+        want = {"histogram": per_analyze * (2 if cfg.warm else 1),
+                "segment_max": 0, "cms_update": 0}
         if launches[name] != want:
-            raise AssertionError(f"{name}: {launches[name]} histogram kernel "
-                                 f"launches, the code implies {want}")
-        log(f"\n[{name}] {launches[name]} histogram kernel launches "
-            f"(= {want}); phase walls:")
+            raise AssertionError(f"{name}: kernel launches {launches[name]}, "
+                                 f"the code implies {want}")
+        log(f"\n[{name}] kernel launches {launches[name]}; phase walls:")
         log(run.timings.format_table())
         runs[name] = run
 
@@ -253,18 +500,163 @@ def main_path(dev, workdir: str):
     if not bool(torch.isfinite(res.window_activity).all()):
         raise AssertionError("window activity is not finite")
     log("window activity: kernel == plain version, rows sum to per-window packets")
+
+    # the sketch tier over the same capture, in micro-batches of 2^15 rows
+    batches = -(-len(cap["src"]) // SKETCH_BATCH)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    snap = run_sketch_tier(cap, SketchConfig(), device=str(dev))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["sketch_tier"] = read_launches()
+    want = {"histogram": 0, "segment_max": 3 * batches, "cms_update": 2 * batches}
+    if launches["sketch_tier"] != want:
+        raise AssertionError(f"sketch tier: kernel launches "
+                             f"{launches['sketch_tier']}, the code implies {want}")
+    log(f"\n[sketch tier] {batches} batches of 2^15 rows in {wall:.4f} s "
+        f"({len(cap['src']) / wall:,.0f} packets/s); kernel launches "
+        f"{launches['sketch_tier']}")
+    log(format_sketch(snap))
+    if snap.n_batches != batches or verify_sketch(snap, ref):
+        raise AssertionError("sketch tier: an estimate is outside its bound")
+    log("[sketch tier] all sketch estimates within their configured bounds")
+    return launches, wall
+
+
+def algorithm_pass(dev, workdir: str):
+    """Phase 4: ``run_challenge(algorithms=True)`` at scale 20 against the
+    NumPy oracles, the launch counts, BFS from a busy source and each
+    algorithm timed on its own.  Returns (the run's launches, the timing
+    runs' launches, per-algorithm ms)."""
+    import torch
+    from repro_torch.challenge.pipeline import ChallengeConfig, run_challenge
+    from repro_torch.challenge.run import format_algorithms, verify_algorithms
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core.queries import table_csrs
+    from repro_torch.core.ref import ref_bfs
+
+    cfg = ChallengeConfig(scale=ALGO_SCALE, method="hash", algorithms=True,
+                          n_windows=N_WINDOWS, ip_bins=IP_BINS,
+                          workdir=workdir, device=str(dev))
+    reset_launches()
+    run = run_challenge(cfg)
+    got = read_launches()
+    a = run.results.algorithms
+    log(run.timings.format_table())
+    log(format_algorithms(run.results))
+    bfs_it, cc_it, pr_it = (int(a.bfs.iterations), int(a.components.iterations),
+                            int(a.pagerank.iterations))
+    # per analyze: one segment-max launch per BFS step and two per
+    # components step; one histogram launch for the activity histogram, one
+    # per PageRank step and one for the triangles' per-node roll-up.  The
+    # warm pass runs analyze a second time; its PageRank may take one step
+    # more or less, since float atomics sum in no fixed order (BFS and
+    # components are exact, so their counts are not allowed to move)
+    want_max = 2 * (bfs_it + 2 * cc_it)
+    warm_pr = got["histogram"] - 2 * 2 - pr_it
+    if (got["segment_max"] != want_max or abs(warm_pr - pr_it) > 1
+            or got["cms_update"] != 0):
+        raise AssertionError(f"algorithm pass: kernel launches {got}, the code "
+                             f"implies segment_max {want_max} and histogram "
+                             f"4 + {pr_it} + ({pr_it} +- 1)")
+    log(f"[algorithms] kernel launches {got} (segment max = 2 x ({bfs_it} + 2 x "
+        f"{cc_it}); histogram = 2 x 2 + {pr_it} + {warm_pr})")
+    t0 = time.perf_counter()
+    if verify_algorithms(run):
+        raise AssertionError("algorithm pass disagrees with the NumPy oracles")
+    log(f"[algorithms] all four match their NumPy oracles "
+        f"(oracles {time.perf_counter() - t0:.1f} s)")
+
+    # BFS again from the heaviest link's source, which has out-edges
+    csr_src, csr_dst = table_csrs(run.anon_table)
+    nv = 2 * run.anon_table.capacity
+    n_live = int(run.results.scalars.n_unique_ips)
+    source = int(run.results.top.src[0])
+    src, dst = run.anon_columns["src"], run.anon_columns["dst"]
+    times, counts = {}, {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) * 1e3
+        counts[name] = read_launches()
+        return out
+
+    bfs = timed("bfs", lambda: alg.bfs_levels(csr_src, source, nv, n_live=n_live))
+    want = ref_bfs(src, dst, n_live, source)
+    levels = bfs.levels.cpu().numpy()
+    if not ((levels[:n_live] == want).all() and (levels[n_live:] == -1).all()):
+        raise AssertionError(f"bfs from {source}: levels disagree with ref_bfs")
+    if int(bfs.iterations) < 3:
+        raise AssertionError(f"bfs from {source}: only {int(bfs.iterations)} steps")
+    log(f"[algorithms] bfs from {source} (the heaviest link's source): "
+        f"{int(bfs.n_reached):,} reached, {int(bfs.iterations)} steps, "
+        "matches ref_bfs")
+    cc = timed("components", lambda: alg.connected_components(
+        csr_src, nv, csr_t=csr_dst, n_live=n_live))
+    pr = timed("pagerank", lambda: alg.pagerank(csr_src, nv, n_live=n_live))
+    tri = timed("triangles", lambda: alg.triangle_counts(csr_src, nv))
+    if int(tri.total) != int(a.triangles.total) or int(cc.n_components) != int(
+            a.components.n_components):
+        raise AssertionError("algorithms alone disagree with the pass")
+    want = {"bfs": {"histogram": 0, "segment_max": int(bfs.iterations)},
+            "components": {"histogram": 0, "segment_max": 2 * int(cc.iterations)},
+            "pagerank": {"histogram": int(pr.iterations), "segment_max": 0},
+            "triangles": {"histogram": 1, "segment_max": 0}}
+    for name, w in want.items():
+        if counts[name] != {**w, "cms_update": 0}:
+            raise AssertionError(f"{name} alone: launches {counts[name]}, the "
+                                 f"code implies {w}")
+    log(f"[algorithms] alone, ms (synchronized before and after): "
+        f"{json.dumps(times)}; launches {json.dumps(counts)}")
+    return got, counts, times
+
+
+def cli_algorithms_and_sketch() -> dict:
+    """Phase 5: the CLI as a user calls it, with ``--algorithms --tier
+    both`` and its other defaults (the card, shuffle anonymization), at
+    scale 18: exit 0, all three oracle lines, every kernel launched.
+    Returns the run's launches."""
+    from repro_torch.challenge.run import main
+
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as workdir:
+        reset_launches()
+        with contextlib.redirect_stdout(out):
+            rc = main(["--scale", str(CLI_SCALE), "--algorithms", "--tier",
+                       "both", "--workdir", workdir])
+        launches = read_launches()
+    text = out.getvalue()
+    log(text)
+    if rc != 0:
+        raise AssertionError(f"python -m repro_torch.challenge.run exited {rc}")
+    for line in ("all scalar queries match the NumPy oracle",
+                 "all four graph algorithms match their NumPy oracles",
+                 "all sketch estimates within their configured bounds"):
+        if line not in text:
+            raise AssertionError(f"the CLI did not print {line!r}")
+    if not all(launches.values()):
+        raise AssertionError(f"the CLI launched no kernel of {launches}")
+    log(f"[cli] kernel launches {launches}")
     return launches
 
 
-def cli_defaults() -> None:
-    """Phase 4: the CLI as a user calls it, with its defaults (the card,
-    ``device="cuda"``, shuffle anonymization), at scale 20."""
-    from repro_torch.challenge.run import main
-
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as workdir:
-        rc = main(["--scale", "20", "--workdir", workdir])
-    if rc != 0:
-        raise AssertionError(f"python -m repro_torch.challenge.run exited {rc}")
+def record(name, source, replaces, launches, max_err, shapes):
+    head = shapes[0]
+    rec = {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": sum(launches.values()), "launches_by_run": launches,
+        "max_abs_err": max_err, "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": "bytes",
+        "library_ms": head["library_ms"], "shapes": shapes,
+    }
+    if not all(math.isfinite(rec[k]) for k in ("ms", "plain_ms", "bound_ms")):
+        raise AssertionError(f"{name}: non-finite timing")
+    return rec
 
 
 def main() -> int:
@@ -281,39 +673,47 @@ def main() -> int:
     log(f"context: {json.dumps(run_context())}")
 
     log("\n== phase 1: build")
-    build_kernel()
+    build_kernels()
 
-    log("\n== phase 2: histogram kernel against its plain version")
-    max_err, shapes = check_kernels(dev)
-    for s in shapes:
-        log("  " + json.dumps(s))
+    log("\n== phase 2: kernels against their plain versions")
+    checks = {}
+    for name, fn in (("histogram", check_histogram),
+                     ("segment_max", check_segment_max), ("cms_update", check_cms)):
+        checks[name] = fn(dev)
+        for s in checks[name][1]:
+            log("  " + json.dumps(s))
 
-    log(f"\n== phase 3: main path, run_challenge at scale {SCALE}")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        launches = main_path(dev, workdir)
+        log(f"\n== phase 3: main path, run_challenge at scale {SCALE}, "
+            "then the sketch tier")
+        main_launches, sketch_s = main_path(dev, workdir)
+        log(f"\n== phase 4: the graph-algorithm pass at scale {ALGO_SCALE}")
+        algo_launches, alone_launches, algo_ms = algorithm_pass(dev, workdir)
 
-    log("\n== phase 4: the CLI with its defaults, scale 20")
-    cli_defaults()
+    log(f"\n== phase 5: the CLI with --algorithms --tier both, scale {CLI_SCALE}")
+    cli_launches = cli_algorithms_and_sketch()
 
-    head = shapes[0]
-    record = {
-        "name": "histogram",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/histogram.cu",
-        "replaces": "src/repro/kernels/histogram.py:108",
-        "launches": sum(launches.values()),
-        "launches_by_run": launches,
-        "max_abs_err": max_err,
-        "ms": head["ms"],
-        "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"],
-        "bound_by": "bytes",
-        "library_ms": head["library_ms"],
-        "shapes": shapes,
-    }
-    if not all(math.isfinite(record[k]) for k in ("ms", "plain_ms", "bound_ms")):
-        raise AssertionError("non-finite timing")
-    print(json.dumps({"kernels": [record]}))
+    # launches of the main path's runs only; the algorithms timed alone are
+    # reported apart and counted nowhere
+    by_kernel = lambda k, runs: {r: v[k] for r, v in runs.items() if v[k]}
+    launches = {**main_launches, "algorithms": algo_launches, "cli": cli_launches}
+    kernels = [
+        record("histogram", "src/repro_torch/kernels/csrc/histogram.cu",
+               "src/repro/kernels/histogram.py:108",
+               by_kernel("histogram", launches), *checks["histogram"]),
+        record("segment_max", "src/repro_torch/kernels/csrc/segreduce.cu",
+               "src/repro/kernels/segreduce.py:92",
+               by_kernel("segment_max", launches), *checks["segment_max"]),
+        record("cms_update", "src/repro_torch/kernels/csrc/sketch.cu",
+               "src/repro/kernels/sketch.py:69",
+               by_kernel("cms_update", launches), *checks["cms_update"]),
+    ]
+    for rec in kernels:
+        if rec["launches"] == 0:
+            raise AssertionError(f"{rec['name']}: no launch on the main path")
+    log(json.dumps({"sketch_tier_s": sketch_s, "algorithms_alone_ms": algo_ms,
+                    "algorithms_alone_launches": alone_launches}))
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,11 @@ The challenge is measured as one workload, timed as phases of a single run:
   analyze    every Table III query off the sort-once plan (three sorts), the
              CSR windowed suite, top-k heaviest links, cross-window IP
              overlap, and the per-window activity histogram in one launch of
-             the CUDA histogram kernel (kernels/ops.windowed_histogram).
+             the CUDA histogram kernel (kernels/ops.windowed_histogram);
+             with ``algorithms=True`` also BFS, connected components,
+             PageRank and triangle counts over the anonymized traffic graph
+             (core/algorithms, through the segment-max and histogram
+             kernels), still in three sorts.
 
 PyTorch launches asynchronously, so every phase span ends with
 ``torch.cuda.synchronize()`` on the card — the counterpart of the
@@ -20,9 +24,8 @@ work.  The warm pass (``ChallengeConfig.warm``) runs every phase once before
 the timed pass; it builds the CUDA kernel and warms the allocator, and its
 wall is reported as ``compile_s``.
 
-Not ported yet: ``fused=True`` (one program for the compute phases),
-``distributed=True`` and ``algorithms=True`` (ROADMAP.md queue 1 items 4,
-10 and 5).
+Not ported yet: ``fused=True`` (one program for the compute phases) and
+``distributed=True`` (ROADMAP.md queue 1 items 4 and 10).
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ import numpy as np
 import torch
 
 from ..convert import table_from_numpy
+from ..core.algorithms import AlgorithmResults, graph_algorithms
 from ..core.anonymize import anonymize
 from ..core.ops import GroupResult, UniqueResult, factorize, mix32
 from ..core.plan import lead_fanout, lead_groups, link_groups, unique_lead
@@ -43,6 +47,7 @@ from ..core.queries import (
     TopLinks,
     packet_weights,
     scalar_queries_from_plans,
+    table_csrs,
     table_plans,
     top_links_from_plan,
     traffic_matrix,
@@ -96,6 +101,8 @@ class ChallengeConfig:
     fmt: str = "plq"                     # 'plq' | 'pcaplite'
     backend: str = "auto"                # histogram dispatch: auto|torch|cuda
     fused_epilogue: bool = False         # kernel epilogues in analyze
+    algorithms: bool = False             # BFS/CC/PageRank/triangles pass
+    bfs_source: int = 0                  # BFS source (anonymized vertex id)
     workdir: Optional[str] = None        # capture cache dir (tmp if None)
     device: str = "cuda"
 
@@ -193,7 +200,9 @@ class ChallengeResults:
     ``per_source``/``per_destination`` (Q6/Q11) and
     ``source_fanout``/``destination_fanin`` (Q8/Q13); beyond Table III the
     per-window statistics, the per-window activity histogram, the
-    cross-window IP overlap and the k heaviest links.
+    cross-window IP overlap and the k heaviest links.  ``algorithms`` is
+    the optional graph-algorithm pass (``analyze(algorithms=True)``), None
+    without it.
     """
 
     scalars: QueryResults
@@ -208,18 +217,22 @@ class ChallengeResults:
     windowed: Dict[str, torch.Tensor]
     window_activity: torch.Tensor      # (n_windows, ip_bins) float32
     window_ip_overlap: torch.Tensor    # (n_windows,) int32
+    algorithms: Optional[AlgorithmResults] = None
 
 
 @dataclasses.dataclass
 class ChallengeRun:
     """A finished run: device results, timings, the host capture columns and
-    the anonymized table the analyze phase ran on."""
+    the anonymized table the analyze phase ran on; ``anon_columns`` (with
+    ``config.algorithms``) holds its live ``src``/``dst`` on the host, the
+    edge list the graph oracles replay."""
 
     results: ChallengeResults
     timings: ChallengePhaseTimings
     capture: Dict[str, np.ndarray]
     config: ChallengeConfig
     anon_table: Table
+    anon_columns: Optional[Dict[str, np.ndarray]] = None
 
 
 def read_phase(cfg: ChallengeConfig, workdir: str) -> Dict[str, np.ndarray]:
@@ -323,6 +336,8 @@ def analyze(
     backend: str = "auto",
     windowed_method: str = "csr",
     fused_epilogue: bool = False,
+    algorithms: bool = False,
+    bfs_source: int = 0,
     device="cuda",
 ) -> ChallengeResults:
     """Every challenge statistic off THREE sorts: the packed src-leading
@@ -333,6 +348,13 @@ def analyze(
     ``fused_epilogue=True`` routes the windowed suite's per-window select and
     the top-k pre-mask through the histogram kernel's gate and
     valid-mask/retire epilogues; bit-identical to the unfused path.
+
+    ``algorithms=True`` adds BFS levels from ``bfs_source``, connected
+    components, PageRank and triangle counts over the anonymized traffic
+    graph, off the zero-sort CSR pair of the two plans (components uses the
+    dst-keyed CSR as its transpose): still three sorts.  The static vertex
+    domain is ``2 * capacity`` (anonymized ids are below the number of
+    distinct IPs, which both endpoints of every row bound).
     """
     device = resolve_device(device)
     if t.device != device:
@@ -346,7 +368,14 @@ def analyze(
     per_dst = lead_groups(plan_dst)
     fanout = lead_fanout(plan_src)
     fanin = lead_fanout(plan_dst)
+    algo = None
+    if algorithms:
+        csr_src, csr_dst = table_csrs(t, plans)
+        algo = graph_algorithms(csr_src, csr_dst, 2 * t.capacity,
+                                n_live=ips.n_unique, source=bfs_source,
+                                backend=backend)
     return ChallengeResults(
+        algorithms=algo,
         scalars=scalar_queries_from_plans(
             t, plan_src, plan_dst, ips, links=links, per_src=per_src,
             per_dst=per_dst, fanout=fanout, fanin=fanin,
@@ -382,6 +411,7 @@ def run_challenge(cfg: ChallengeConfig) -> ChallengeRun:
     os.makedirs(workdir, exist_ok=True)
     kw = dict(n_windows=cfg.n_windows, ip_bins=cfg.ip_bins, k=cfg.top_k,
               backend=cfg.backend, fused_epilogue=cfg.fused_epilogue,
+              algorithms=cfg.algorithms, bfs_source=cfg.bfs_source,
               device=device)
 
     def build_fn(s, d, wn, nv):
@@ -433,5 +463,10 @@ def run_challenge(cfg: ChallengeConfig) -> ChallengeRun:
             compile_s=sp_compile.duration_s if sp_compile is not None else None,
         )
 
+    anon_columns = None
+    if cfg.algorithms:
+        anon_columns = {c: anon.table[c][:n].cpu().numpy().astype(np.int64)
+                        for c in ("src", "dst")}
     return ChallengeRun(results=results, timings=timings, capture=capture,
-                        config=cfg, anon_table=anon.table)
+                        config=cfg, anon_table=anon.table,
+                        anon_columns=anon_columns)

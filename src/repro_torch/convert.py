@@ -1,15 +1,18 @@
 """Carrying state between the JAX package and the port.
 
-The system has no weights: what crosses is the packet table going in and
-the results coming out.  :func:`table_from_numpy` builds the port's
-``Table`` from the host columns a JAX ``Table`` holds, and
-:func:`results_to_numpy` flattens a ``ChallengeResults`` into one dict of
-numpy arrays keyed by field path (``"links.keys.0"``, ``"scalars.n_unique_ips"``,
-``"windowed.max_source_fanout"``...).  It reads fields by name and turns
-every leaf into a numpy array, so the same call flattens the reference's
-``ChallengeResults`` (whose fields carry the same names) and the tests
-compare the two dicts key by key.  The challenge pipeline builds its packet
-table with :func:`table_from_numpy` too.
+The system has no weights: what crosses is the packet table going in, the
+sketch tier's state, and the results coming out.  :func:`table_from_numpy`
+builds the port's ``Table`` from the host columns a JAX ``Table`` holds;
+:func:`sketch_state_from_numpy` builds the port's ``SketchState`` from a
+JAX ``SketchState``'s arrays, so both sides can fold the same batch into the
+same starting state; :func:`results_to_numpy` flattens a ``ChallengeResults``
+(its ``AlgorithmResults`` included), a ``SketchSnapshot`` or any other
+dataclass of results into one dict of numpy arrays keyed by field path
+(``"links.keys.0"``, ``"algorithms.bfs.levels"``, ``"bounds.cms_delta"``...).
+It reads fields by name and turns every leaf into a numpy array, so the same
+call flattens the reference's results (whose fields carry the same names)
+and the tests compare the two dicts key by key.  The challenge pipeline
+builds its packet table with :func:`table_from_numpy` too.
 """
 from __future__ import annotations
 
@@ -19,9 +22,10 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from .core.sketch import SketchState
 from .core.table import Table, resolve_device
 
-__all__ = ["table_from_numpy", "results_to_numpy"]
+__all__ = ["table_from_numpy", "sketch_state_from_numpy", "results_to_numpy"]
 
 
 def table_from_numpy(columns: Mapping[str, np.ndarray], n_valid: int,
@@ -34,6 +38,17 @@ def table_from_numpy(columns: Mapping[str, np.ndarray], n_valid: int,
                  for k, v in columns.items()},
         n_valid=torch.tensor(int(n_valid), dtype=torch.int32, device=device),
     )
+
+
+def sketch_state_from_numpy(arrays: Mapping[str, np.ndarray], seed: int,
+                            device="cuda") -> SketchState:
+    """The port's ``SketchState`` on ``device`` from the arrays of a sketch
+    state as numpy, keyed by field name (every field but ``seed``)."""
+    device = resolve_device(device)
+    names = [f.name for f in dataclasses.fields(SketchState) if f.name != "seed"]
+    return SketchState(
+        **{k: torch.from_numpy(np.array(arrays[k])).to(device) for k in names},
+        seed=int(seed))
 
 
 def _leaf(x) -> np.ndarray:
@@ -59,11 +74,12 @@ def _flatten(prefix: str, x, out: Dict[str, np.ndarray]) -> None:
 
 
 def results_to_numpy(results) -> Dict[str, np.ndarray]:
-    """Flatten the fields of a ``ChallengeResults`` into numpy arrays.
+    """Flatten the fields of a results dataclass (``ChallengeResults``,
+    ``AlgorithmResults``, ``SketchSnapshot``) into numpy arrays.
 
     Works on the port's results and, field for field, on the reference's;
-    a field that is None (the reference's ``algorithms`` when that pass is
-    off) contributes nothing.
+    a field that is None (``algorithms`` when that pass is off) contributes
+    nothing.
     """
     out: Dict[str, np.ndarray] = {}
     for f in dataclasses.fields(results):

@@ -38,6 +38,7 @@ __all__ = [
     "factorize",
     "masked_max",
     "clamp_k",
+    "top_k",
     "argmax_top_k",
     "mix32",
     "random_permutation",
@@ -293,6 +294,32 @@ def masked_max(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 def clamp_k(k: int, capacity: int) -> int:
     """``min(k, capacity)`` — the static top-k clamp."""
     return min(k, capacity)
+
+
+def top_k(
+    values: torch.Tensor,
+    k: int,
+    valid_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Largest ``k`` live entries of ``values``: ``(vals, indices, n_live)``.
+
+    ``lax.top_k``'s tie rule, lowest index first, from one stable descending
+    sort (``torch.topk`` promises no order among ties).  Slots past
+    ``n_live = min(k, #valid)`` hold the dtype min and index 0; ``k`` is
+    clamped to the buffer capacity.
+    """
+    k = clamp_k(k, values.shape[0])
+    ident = _min_ident(values.dtype)
+    masked = values if valid_mask is None else torch.where(
+        valid_mask, values, ident)
+    vals, idx = torch.sort(masked, descending=True, stable=True)
+    vals, idx = vals[:k], idx[:k]
+    n_live = (_count(values.shape[0], 0, values.device) if valid_mask is None
+              else valid_mask.sum(dtype=torch.int32))
+    n_live = torch.clamp(n_live, max=k)
+    keep = _iota(k, values.device) < n_live
+    return (torch.where(keep, vals, ident),
+            torch.where(keep, idx, 0).to(torch.int32), n_live)
 
 
 def argmax_top_k(

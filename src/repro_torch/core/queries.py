@@ -31,12 +31,14 @@ from .plan import (
     plan_for_table,
     unique_concat,
 )
+from .sparse import CsrMatrix, csr_from_plan
 from .table import Table
 
 __all__ = [
     "TopLinks",
     "top_links_from_plan",
     "table_plans",
+    "table_csrs",
     "scalar_queries_from_plans",
     "packet_weights",
     "traffic_matrix",
@@ -148,6 +150,14 @@ class QueryResults:
 def table_plans(t: Table) -> Tuple[SortedEdges, SortedEdges]:
     """The (src-leading, dst-leading) plan pair the whole suite shares."""
     return plan_for_table(t, "src", "dst"), plan_for_table(t, "dst", "src")
+
+
+def table_csrs(
+    t: Table, plans: Optional[Tuple[SortedEdges, SortedEdges]] = None
+) -> Tuple[CsrMatrix, CsrMatrix]:
+    """(A_t, A_t^T) as CSRs off the shared plan pair — zero extra sorts."""
+    plan_src, plan_dst = table_plans(t) if plans is None else plans
+    return csr_from_plan(plan_src), csr_from_plan(plan_dst)
 
 
 def scalar_queries_from_plans(

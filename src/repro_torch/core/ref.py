@@ -4,10 +4,18 @@
 A straightforward, sequential NumPy implementation of the Table III queries
 with dynamic shapes: the ground truth the port is checked against, on the
 CPU in the tests and on the card by ``chip_smoke.py``.
+
+The graph-algorithm oracles (``ref_bfs``, ``ref_cc``, ``ref_pagerank``,
+``ref_triangles``) are the port's copy of ``repro/kernels/ref.py:229-342``:
+deliberately boring NumPy/SciPy (a queue, union-find, dense power iteration,
+a SciPy sparse product), structurally unlike the semiring fixed points of
+:mod:`repro_torch.core.algorithms`, so agreement is evidence.  They sit
+here, beside the other NumPy oracles, because the port's
+``kernels/ref.py`` holds the kernels' plain PyTorch versions.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -18,6 +26,10 @@ __all__ = [
     "ref_top_links",
     "ref_windowed_histogram",
     "ref_window_ip_overlap",
+    "ref_bfs",
+    "ref_cc",
+    "ref_pagerank",
+    "ref_triangles",
 ]
 
 
@@ -121,3 +133,119 @@ def ref_anonymize_check(orig_src, orig_dst, anon_src, anon_dst) -> bool:
         return False  # not a bijection onto [0, n)
     remapped = [(mapping[s], mapping[d]) for s, d in zip(orig_src.tolist(), orig_dst.tolist())]
     return sorted(remapped) == sorted(zip(anon_src.tolist(), anon_dst.tolist()))
+
+
+def _ref_adjacency(
+    src: np.ndarray, dst: np.ndarray, n_vertices: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    """CSR-ish adjacency: (neighbors sorted by source, per-source offsets)."""
+    src = np.asarray(src, np.int64)
+    dst = np.asarray(dst, np.int64)
+    order = np.argsort(src, kind="stable")
+    starts = np.searchsorted(src[order], np.arange(n_vertices + 1))
+    return dst[order], starts
+
+
+def ref_bfs(
+    src: np.ndarray, dst: np.ndarray, n_vertices: int, source: int
+) -> np.ndarray:
+    """Textbook queue BFS over directed edges: hop levels, -1 unreachable."""
+    levels = np.full(n_vertices, -1, np.int32)
+    if not 0 <= source < n_vertices:
+        return levels
+    nbrs, starts = _ref_adjacency(src, dst, n_vertices)
+    levels[source] = 0
+    frontier = [source]
+    depth = 0
+    while frontier:
+        depth += 1
+        nxt = []
+        for u in frontier:
+            for v in nbrs[starts[u]:starts[u + 1]]:
+                if levels[v] < 0:
+                    levels[v] = depth
+                    nxt.append(int(v))
+        frontier = nxt
+    return levels
+
+
+def ref_cc(src: np.ndarray, dst: np.ndarray, n_vertices: int) -> np.ndarray:
+    """Weakly connected components by union-find: label = min vertex id in
+    the component (isolated vertices are their own singletons)."""
+    parent = np.arange(n_vertices, dtype=np.int64)
+
+    def find(u):
+        root = u
+        while parent[root] != root:
+            root = parent[root]
+        while parent[u] != root:  # path compression
+            parent[u], u = root, parent[u]
+        return root
+
+    for u, v in zip(np.asarray(src, np.int64), np.asarray(dst, np.int64)):
+        ru, rv = find(u), find(v)
+        if ru != rv:
+            # union by min id keeps the root the component minimum
+            lo, hi = (ru, rv) if ru < rv else (rv, ru)
+            parent[hi] = lo
+    return np.array([find(u) for u in range(n_vertices)], np.int32)
+
+
+def ref_pagerank(
+    src: np.ndarray,
+    dst: np.ndarray,
+    weights: np.ndarray,
+    n_vertices: int,
+    *,
+    damping: float = 0.85,
+    tol: float = 1e-6,
+    max_iters: int = 100,
+) -> Tuple[np.ndarray, int, bool]:
+    """Dense float64 power iteration, same update as core.algorithms.pagerank.
+
+    Duplicate (src, dst) rows act as additive weights (np.add.at), matching
+    the duplicate-collapsing CSR build.  Returns (ranks, iterations,
+    converged).
+    """
+    n = int(n_vertices)
+    if n == 0:
+        return np.zeros((0,), np.float64), 0, True
+    src = np.asarray(src, np.int64)
+    dst = np.asarray(dst, np.int64)
+    w = np.asarray(weights, np.float64)
+    outw = np.zeros(n, np.float64)
+    np.add.at(outw, src, w)
+    r = np.full(n, 1.0 / n, np.float64)
+    for it in range(1, max_iters + 1):
+        contrib = np.divide(r, outw, out=np.zeros_like(r), where=outw > 0)
+        y = np.zeros(n, np.float64)
+        np.add.at(y, dst, w * contrib[src])
+        dangling = r[outw <= 0].sum()
+        new = damping * (y + dangling / n) + (1.0 - damping) / n
+        residual = np.abs(new - r).sum()
+        r = new
+        if residual < tol:
+            return r, it, True
+    return r, max_iters, False
+
+
+def ref_triangles(
+    src: np.ndarray, dst: np.ndarray, n_vertices: int
+) -> Tuple[np.ndarray, int]:
+    """Masked sparse product C = A ⊙ (A·A) via SciPy (structural A).
+
+    Returns (per-source-vertex wedge-closure counts, global total) — the
+    oracle for core.algorithms.triangle_counts.
+    """
+    import scipy.sparse as sp
+
+    n = int(n_vertices)
+    a = sp.csr_matrix(
+        (np.ones(len(src), np.float64),
+         (np.asarray(src, np.int64), np.asarray(dst, np.int64))),
+        shape=(n, n),
+    )
+    a.data[:] = 1.0  # collapse duplicate edges to structural 1s
+    c = a.multiply(a @ a)
+    per_node = np.asarray(c.sum(axis=1)).ravel()
+    return per_node, int(round(c.sum()))

@@ -1,5 +1,5 @@
 """Public kernel entry points with backend dispatch — the port of
-``repro/kernels/ops.py`` (histogram family).
+``repro/kernels/ops.py`` (the histogram, segment-max and sketch families).
 
 ``backend`` picks the implementation:
 
@@ -10,9 +10,9 @@
   * ``"cuda"``  — the CUDA kernel; raises on a CPU tensor.
 
 The reference's ``"auto"`` adds a size heuristic (Pallas only up to 4,096
-bins) that would keep the default run's 8,192 flat activity bins off the
-kernel; the port has none, and no fallback: a kernel that fails to build or
-launch raises.
+bins) that would keep the default run's 8,192 flat activity bins, and the
+vxm's ``2 * capacity`` vertex slots, off the kernels; the port has none,
+and no fallback: a kernel that fails to build or launch raises.
 """
 from __future__ import annotations
 
@@ -22,8 +22,11 @@ import torch
 
 from . import ref
 from .histogram import histogram_cuda
+from .segreduce import segment_max_cuda
+from .sketch import cms_update_cuda, hll_update_cuda
 
-__all__ = ["histogram", "windowed_histogram", "segmented_reduce"]
+__all__ = ["histogram", "windowed_histogram", "segmented_reduce",
+           "cms_update", "hll_update"]
 
 _BACKENDS = ("auto", "torch", "cuda")
 
@@ -93,19 +96,58 @@ def segmented_reduce(
     out_dtype: Optional[torch.dtype] = None,
     backend: str = "auto",
 ) -> torch.Tensor:
-    """1-D segmented sum: the histogram kernel with ``vals`` as weights, and
-    ``ref.ref_histogram`` with them as its plain version.
+    """1-D segmented reduction under the plus or max monoid.
 
-    Empty segments are 0; ``retire`` defaults to 0; ``out_dtype`` (float32
-    by default, or int32) is the accumulator on both paths, so int32 sums
-    are exact at any count.  ``op="max"`` needs the segment-max kernel,
-    which is not ported yet (ROADMAP.md queue 2 item 2).
+    ``op="sum"`` is the histogram kernel with ``vals`` as weights
+    (``ref.ref_histogram`` its plain version): empty segments are 0,
+    ``retire`` defaults to 0, and ``out_dtype`` (float32 by default, or
+    int32) is the accumulator on both paths, so int32 sums are exact at any
+    count.  ``op="max"`` is the segment-max kernel (``ref.ref_segment_max``):
+    float32, empty segments ``-inf``, ``retire`` defaults to ``-inf``, and
+    ``out_dtype`` raises, as in the reference (``-inf`` has no integer
+    image).  ``init`` folds a running accumulator in; ``gate_ids`` /
+    ``gate_value`` drop rows; ``valid_mask`` + ``retire`` overwrite
+    masked-out segments last.
     """
+    kw = dict(init=init, gate_ids=gate_ids, gate_value=gate_value,
+              valid_mask=valid_mask)
+    if op == "max":
+        if out_dtype is not None:
+            raise ValueError("out_dtype is only supported for op='sum' (the "
+                             "max identity -inf has no integer image)")
+        impl = (segment_max_cuda if _use_kernel(backend, seg_ids)
+                else ref.ref_segment_max)
+        return impl(vals, seg_ids, num_segments,
+                    retire=float("-inf") if retire is None else retire, **kw)
     if op != "sum":
-        raise NotImplementedError(
-            f"segmented_reduce(op={op!r}) is not ported yet: the max monoid "
-            "comes with the segment-max kernel (ROADMAP.md queue 2 item 2)")
+        raise ValueError(f"unknown segmented-reduce op {op!r}")
     impl = histogram_cuda if _use_kernel(backend, seg_ids) else ref.ref_histogram
-    return impl(seg_ids, num_segments, vals, init=init, gate_ids=gate_ids,
-                gate_value=gate_value, valid_mask=valid_mask,
-                retire=0 if retire is None else retire, out_dtype=out_dtype)
+    return impl(seg_ids, num_segments, vals, retire=0 if retire is None else retire,
+                out_dtype=out_dtype, **kw)
+
+
+def cms_update(
+    counts: torch.Tensor,
+    col_ids: torch.Tensor,
+    proposals: torch.Tensor,
+    *,
+    backend: str = "auto",
+) -> torch.Tensor:
+    """Conservative-update Count-Min fold: the cell-wise max of the running
+    ``(depth, width)`` counts and the scatter-max of ``proposals`` through
+    each depth row's hashed ``col_ids`` (``-1`` = masked), in one launch."""
+    impl = cms_update_cuda if _use_kernel(backend, counts) else ref.ref_cms_update
+    return impl(counts, col_ids, proposals)
+
+
+def hll_update(
+    registers: torch.Tensor,
+    reg_ids: torch.Tensor,
+    rhos: torch.Tensor,
+    *,
+    backend: str = "auto",
+) -> torch.Tensor:
+    """HyperLogLog register fold: the segment max with the running
+    registers as ``init`` (the segment-max kernel on the card)."""
+    impl = hll_update_cuda if _use_kernel(backend, reg_ids) else ref.ref_hll_update
+    return impl(registers, reg_ids, rhos)

@@ -11,7 +11,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["ref_histogram"]
+__all__ = ["ref_histogram", "ref_segment_max", "ref_cms_update", "ref_hll_update"]
 
 
 def ref_histogram(
@@ -49,3 +49,78 @@ def ref_histogram(
         out = out.masked_fill(~valid_mask, retire)
     return out
 
+
+
+def ref_segment_max(
+    vals: torch.Tensor,
+    seg_ids: torch.Tensor,
+    num_segments: int,
+    *,
+    init: Optional[torch.Tensor] = None,
+    gate_ids: Optional[torch.Tensor] = None,
+    gate_value=None,
+    valid_mask: Optional[torch.Tensor] = None,
+    retire=float("-inf"),
+) -> torch.Tensor:
+    """Per-segment float32 max: ``out[s] = max(init[s], max_{i: seg_ids[i]==s}
+    vals[i])``.
+
+    The contract of ``repro/kernels/ref.py:113-126`` (``op="max"``): ids
+    outside ``[0, num_segments)`` are dropped, and with ``gate_ids`` so are
+    rows with ``gate_ids[i] != gate_value``; empty segments give ``-inf``,
+    the max monoid's identity; ``init`` folds in by ``torch.maximum``;
+    segments where ``valid_mask`` is False take ``retire`` last.  Values are
+    not NaN.
+    """
+    ok = (seg_ids >= 0) & (seg_ids < num_segments)
+    if gate_ids is not None:
+        ok = ok & (gate_ids == gate_value)
+    out = torch.full((num_segments + 1,), float("-inf"), dtype=torch.float32,
+                     device=seg_ids.device).scatter_reduce_(
+        0, torch.where(ok, seg_ids, num_segments).long(),
+        vals.to(torch.float32), reduce="amax")[:num_segments]
+    if init is not None:
+        out = torch.maximum(init.to(torch.float32), out)
+    if valid_mask is not None:
+        out = out.masked_fill(~valid_mask, retire)
+    return out
+
+
+def ref_cms_update(
+    counts: torch.Tensor,
+    col_ids: torch.Tensor,
+    proposals: torch.Tensor,
+) -> torch.Tensor:
+    """Conservative-update Count-Min fold, the contract of
+    ``repro/kernels/ref.py:130-163``.
+
+    ``out[r, c] = max(counts[r, c], max_{i: col_ids[r, i] == c}
+    proposals[i])``: every depth row scatter-maxes the same proposals through
+    its own hashed columns; ids outside ``[0, width)`` (``-1`` marks a masked
+    proposal) are dropped.  Works in ``counts.dtype``, float32 or int32, with
+    the dtype's minimum as the empty-cell sentinel.
+    """
+    depth, width = counts.shape
+    dtype = counts.dtype
+    sentinel = (float("-inf") if dtype.is_floating_point
+                else torch.iinfo(dtype).min)
+    ids = col_ids.to(torch.int32)
+    ok = (ids >= 0) & (ids < width)
+    rows = torch.arange(depth, dtype=torch.int32, device=ids.device)[:, None]
+    fused = torch.where(ok, rows * width + ids, depth * width)
+    props = proposals.to(dtype)[None, :].expand(ids.shape)
+    upd = torch.full((depth * width + 1,), sentinel, dtype=dtype,
+                     device=ids.device).scatter_reduce_(
+        0, fused.reshape(-1).long(), torch.where(ok, props, sentinel).reshape(-1),
+        reduce="amax")[:depth * width].reshape(depth, width)
+    return torch.maximum(counts, upd)
+
+
+def ref_hll_update(
+    registers: torch.Tensor,
+    reg_ids: torch.Tensor,
+    rhos: torch.Tensor,
+) -> torch.Tensor:
+    """HyperLogLog register fold: :func:`ref_segment_max` with the running
+    registers as ``init`` (``repro/kernels/ref.py:166-176``)."""
+    return ref_segment_max(rhos, reg_ids, registers.shape[0], init=registers)

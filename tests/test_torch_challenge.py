@@ -3,19 +3,17 @@ against the JAX ``analyze`` through ``repro_torch.convert`` (bit for bit, on
 every output), the three-sort budget, the CSR windowed suite and the
 cross-window overlap against the NumPy oracle, anonymization, the timed
 run and the CLI."""
-import contextlib
 import json
 import os
 import subprocess
 import sys
 from pathlib import Path
 
-import jax
-import jax.experimental
 import numpy as np
 import pytest
 import torch
 
+from _torch_parity import x64_shim  # noqa: F401  (fixture)
 from repro.challenge import pipeline as jax_pipeline
 from repro.core.anonymize import anonymize as jax_anonymize
 from repro_torch.challenge import pipeline
@@ -34,21 +32,6 @@ from repro_torch.obs import export_jsonl, get_tracer, read_jsonl
 
 N_WINDOWS, IP_BINS, K = 8, 1024, 10
 ROOT = Path(__file__).resolve().parents[1]
-
-
-@pytest.fixture
-def x64_shim(monkeypatch):
-    """The reference's packed sort calls ``jax.experimental.enable_x64``,
-    which JAX 0.9 removed; stand in ``jax.enable_x64(True)`` where it is
-    missing, and nothing where it exists."""
-    if not hasattr(jax.experimental, "enable_x64"):
-        @contextlib.contextmanager
-        def enable_x64():
-            with jax.enable_x64(True):
-                yield
-
-        monkeypatch.setattr(jax.experimental, "enable_x64", enable_x64,
-                            raising=False)
 
 
 def _columns(scale, tmp_path, capacity=None):
@@ -173,8 +156,20 @@ def test_cli_on_cpu_prints_report_and_oracle_line(tmp_path):
     assert "top-10 heaviest links" in proc.stdout
 
 
-@pytest.mark.parametrize("flag", [["--fused"], ["--distributed"], ["--algorithms"],
-                                  ["--tier", "sketch"], ["--autotune"]])
+def test_cli_algorithms_and_sketch_tier_on_cpu(tmp_path, capsys):
+    rc = main(["--scale", "9", "--windows", "2", "--device", "cpu",
+               "--algorithms", "--tier", "both", "--workdir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert rc == 0
+    for line in ("all scalar queries match the NumPy oracle",
+                 "all four graph algorithms match their NumPy oracles",
+                 "all sketch estimates within their configured bounds",
+                 "graph algorithms over the anonymized traffic graph",
+                 "sketch tier (bounded memory"):
+        assert line in out
+
+
+@pytest.mark.parametrize("flag", [["--fused"], ["--distributed"], ["--autotune"]])
 def test_cli_refuses_unported_flags(flag, capsys):
     with pytest.raises(SystemExit) as e:
         main(["--scale", "9", "--device", "cpu", *flag])

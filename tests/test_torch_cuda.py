@@ -1,4 +1,5 @@
-"""The CUDA histogram kernel against its plain version, on the card.
+"""The CUDA kernels (histogram, segment max, Count-Min) against their plain
+versions, on the card.
 
 These tests need an NVIDIA card and ``nvcc``: they carry the ``cuda``
 marker and skip without a card.  Run them on a machine with one:
@@ -14,6 +15,8 @@ import torch
 
 from repro_torch.kernels import histogram as hist_kernel
 from repro_torch.kernels import ops
+from repro_torch.kernels import segreduce as segmax_kernel
+from repro_torch.kernels import sketch as sketch_kernel
 
 pytestmark = pytest.mark.cuda
 
@@ -79,3 +82,78 @@ def test_kernel_rejects_bad_inputs(dev):
     with pytest.raises(ValueError, match="shape"):
         hist_kernel.histogram_cuda(torch.zeros(4, dtype=torch.int32, device=dev), 3,
                                    torch.ones(5, device=dev))
+
+
+def _rand_floats(g, n, dev):
+    """Normal floats with ±inf and both zeros mixed in."""
+    v = torch.randn(n, generator=g, device=dev)
+    special = torch.tensor([float("inf"), float("-inf"), -0.0, 0.0], device=dev)
+    pick = torch.randint(0, 10, (n,), generator=g, device=dev) == 0
+    return torch.where(pick, special[torch.randint(0, 4, (n,), generator=g,
+                                                   device=dev)], v)
+
+
+@pytest.mark.parametrize("num_segments", [1, 4096, 12288, 20000])  # shared + global
+@pytest.mark.parametrize("with_init,gated,masked",
+                         list(itertools.product([False, True], repeat=3)))
+def test_segment_max_kernel_matches_plain(dev, num_segments, with_init, gated,
+                                          masked):
+    g = torch.Generator(device=dev).manual_seed(num_segments + 7)
+    n = 50_000
+    kw = {}
+    if with_init:
+        kw["init"] = _rand_floats(g, num_segments, dev)
+    if gated:
+        kw.update(gate_ids=_rand(g, 0, 3, n, dev), gate_value=1)
+    if masked:
+        kw.update(valid_mask=_rand(g, 0, 2, num_segments, dev).bool(),
+                  retire=float("-inf"))
+    ids = _rand(g, -10, num_segments + 10, n, dev)
+    vals = _rand_floats(g, n, dev)
+    before = segmax_kernel.LAUNCHES
+    got = ops.segmented_reduce(vals, ids, num_segments, op="max",
+                               backend="cuda", **kw)
+    assert segmax_kernel.LAUNCHES == before + 1
+    want = ops.segmented_reduce(vals, ids, num_segments, op="max",
+                                backend="torch", **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("width", [4096, 20000])  # the default width and a wider one
+@pytest.mark.parametrize("n", [0, 1, 32768])
+def test_cms_kernel_matches_plain(dev, dtype, width, n):
+    g = torch.Generator(device=dev).manual_seed(width + n)
+    depth = 4
+    counts = _rand(g, 0, 1 << 26, depth * width, dev).reshape(depth, width).to(dtype)
+    cols = _rand(g, -1, width + 3, depth * n, dev).reshape(depth, n)
+    props = _rand(g, 0, 1 << 27, n, dev)
+    got = ops.cms_update(counts, cols, props, backend="cuda")
+    want = ops.cms_update(counts, cols, props, backend="torch")
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+def test_auto_dispatch_launches_the_new_kernels(dev):
+    ids = torch.arange(10, dtype=torch.int32, device=dev)
+    segmax_before, cms_before = segmax_kernel.LAUNCHES, sketch_kernel.LAUNCHES
+    got = ops.segmented_reduce(ids.float(), ids, 10, op="max")
+    assert torch.equal(got, ids.float())
+    regs = ops.hll_update(torch.zeros(16, device=dev), ids, ids + 1)
+    assert torch.equal(regs[:10], (ids + 1).float())
+    assert segmax_kernel.LAUNCHES == segmax_before + 2
+    out = ops.cms_update(torch.zeros((2, 16), dtype=torch.int32, device=dev),
+                         torch.stack([ids, ids]), ids)
+    assert sketch_kernel.LAUNCHES == cms_before + 1
+    assert torch.equal(out[:, :10], torch.stack([ids, ids]))
+
+
+def test_new_kernels_reject_bad_inputs(dev):
+    with pytest.raises(ValueError, match="int32"):
+        segmax_kernel.segment_max_cuda(torch.ones(4, device=dev),
+                                       torch.zeros(4, dtype=torch.int64, device=dev), 3)
+    with pytest.raises(ValueError, match="shape"):
+        sketch_kernel.cms_update_cuda(torch.zeros((2, 3), dtype=torch.int32, device=dev),
+                                      torch.zeros((3, 4), dtype=torch.int32, device=dev),
+                                      torch.zeros(4, dtype=torch.int32, device=dev))

@@ -30,7 +30,8 @@ def _imported_modules(tree):
 def test_scan_covers_the_port():
     assert len(FILES) > 20
     names = {p.name for p in FILES}
-    assert {"chip_smoke.py", "pipeline.py", "histogram.py"} <= names
+    assert {"chip_smoke.py", "pipeline.py", "histogram.py", "sparse.py",
+            "algorithms.py", "sketch.py", "segreduce.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

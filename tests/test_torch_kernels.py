@@ -1,9 +1,11 @@
-"""The port's histogram family on the CPU: its plain PyTorch version against
-the reference's plain version (``repro.kernels.ref`` / the XLA path) and
-against the Pallas kernel body run in interpret mode, for every epilogue
-combination; plus the dispatch contract.  Integer-valued inputs, so every
-comparison is bit-equal.  The CUDA kernel itself is held against the plain
-version on the card in tests/test_torch_cuda.py and chip_smoke.py."""
+"""The port's kernel families on the CPU — histogram, segment max,
+Count-Min and the HyperLogLog fold: each plain PyTorch version against the
+reference's plain version (``repro.kernels.ref`` / the XLA path) and against
+the Pallas kernel body run in interpret mode, for every epilogue
+combination; plus the dispatch contract.  Sums take integer-valued inputs
+and max is exact in any order, so every comparison is bit-equal.  The CUDA
+kernels themselves are held against the plain versions on the card in
+tests/test_torch_cuda.py and chip_smoke.py."""
 import itertools
 
 import jax.numpy as jnp
@@ -14,8 +16,13 @@ import torch
 from repro.kernels import ops as jax_ops
 from repro.kernels import ref as jax_ref
 from repro.kernels.histogram import histogram_pallas
+from repro.kernels.segreduce import segment_max_pallas
+from repro.kernels.sketch import cms_update_pallas, hll_update_pallas
 from repro_torch.kernels import histogram as hist_kernel
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref
+from repro_torch.kernels import segreduce as segmax_kernel
+from repro_torch.kernels import sketch as sketch_kernel
 
 N, BINS = 300, 50
 
@@ -131,7 +138,164 @@ def test_cuda_backend_refuses_cpu_tensors():
 
 
 def test_segment_max_is_not_ported_yet():
-    for backend in ("auto", "torch", "cuda"):
-        with pytest.raises(NotImplementedError, match="queue 2 item 2"):
-            ops.segmented_reduce(torch.ones(3), torch.zeros(3, dtype=torch.int32),
-                                 2, op="max", backend=backend)
+    """The max monoid is ported: ``op="max"`` takes the plain version for a
+    CPU tensor under ``auto`` and ``torch``, and ``cuda`` refuses it."""
+    vals, seg = torch.tensor([1.0, 5.0, -2.0]), torch.tensor([0, 0, 1], dtype=torch.int32)
+    for backend in ("auto", "torch"):
+        got = ops.segmented_reduce(vals, seg, 3, op="max", backend=backend)
+        np.testing.assert_array_equal(got.numpy(), [5.0, -2.0, -np.inf])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.segmented_reduce(vals, seg, 3, op="max", backend="cuda")
+
+
+# --- segment max ---------------------------------------------------------------
+
+def _max_inputs(seed, n=N):
+    """Random float32 values with ties, ±inf and both zeros."""
+    rng = np.random.default_rng(seed)
+    vals = rng.standard_normal(n).astype(np.float32)
+    special = np.array([np.inf, -np.inf, -0.0, 0.0], np.float32)
+    pick = rng.random(n) < 0.1
+    vals[pick] = rng.choice(special, pick.sum())
+    vals[:3] = [0.0, -0.0, -0.0]  # zeros of both signs, whatever else
+    x = _inputs(seed)
+    x["vals"] = vals
+    x["init"] = rng.standard_normal(BINS).astype(np.float32)
+    x["init"][::7] = -np.inf
+    return x
+
+
+def _torch_kw(kw):
+    return {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+            for k, v in kw.items()}
+
+
+def _jax_kw(kw):
+    return {k: jnp.asarray(v) if isinstance(v, np.ndarray) else v
+            for k, v in kw.items()}
+
+
+@pytest.mark.parametrize("with_init,gated,masked", COMBOS)
+def test_segment_max_plain_matches_reference_and_pallas(with_init, gated, masked):
+    x = _max_inputs(21 + 4 * with_init + 2 * gated + masked)
+    kw = {"init": x["init"]} if with_init else {}
+    if gated:
+        kw.update(gate_ids=x["gate"], gate_value=2)
+    if masked:
+        kw.update(valid_mask=x["mask"], retire=-3.5)
+    got = ops.segmented_reduce(torch.from_numpy(x["vals"]),
+                               torch.from_numpy(x["ids"]), BINS, op="max",
+                               **_torch_kw(kw))
+    assert got.dtype == torch.float32
+    vals, seg, jkw = jnp.asarray(x["vals"]), jnp.asarray(x["ids"]), _jax_kw(kw)
+    _assert_same(got, jax_ref.ref_segmented_reduce(vals, seg, BINS, "max", **jkw))
+    _assert_same(got, segment_max_pallas(vals, seg, BINS, interpret=True, **jkw))
+    direct = ref.ref_segment_max(torch.from_numpy(x["vals"]),
+                                 torch.from_numpy(x["ids"]), BINS, **_torch_kw(kw))
+    _assert_same(direct, np.asarray(got))
+
+
+def test_segment_max_empty_segments_out_of_range_and_no_rows():
+    x = _max_inputs(30, n=40)
+    ids = np.random.default_rng(31).integers(-5, BINS + 5, 40).astype(np.int32)
+    got = ops.segmented_reduce(torch.from_numpy(x["vals"]),
+                               torch.from_numpy(ids), BINS, op="max")
+    empty = np.setdiff1d(np.arange(BINS), ids)
+    assert len(empty) > 0 and np.all(got.numpy()[empty] == -np.inf)
+    # ids in -5..-1 and BINS..BINS+4 are dropped: only in-range rows count
+    ok = (ids >= 0) & (ids < BINS)
+    assert not ok.all()
+    want = np.full(BINS, -np.inf, np.float32)
+    np.maximum.at(want, ids[ok], x["vals"][ok])
+    np.testing.assert_array_equal(got.numpy(), want)
+    _assert_same(got, segment_max_pallas(jnp.asarray(x["vals"]), jnp.asarray(ids),
+                                         BINS, interpret=True))
+    # no rows: -inf, or init, then the retire epilogue
+    no = torch.empty(0, dtype=torch.int32)
+    init = torch.from_numpy(x["init"])
+    mask = torch.from_numpy(x["mask"])
+    for kw in (dict(), dict(init=init), dict(init=init, valid_mask=mask, retire=7.0)):
+        got = ops.segmented_reduce(torch.empty(0), no, BINS, op="max", **kw)
+        want = segment_max_pallas(jnp.zeros(0), jnp.zeros(0, jnp.int32), BINS,
+                                  interpret=True, **_jax_kw(
+                                      {k: v.numpy() if isinstance(v, torch.Tensor)
+                                       else v for k, v in kw.items()}))
+        _assert_same(got, want)
+
+
+def test_segment_max_refuses_out_dtype_and_unknown_ops():
+    vals, seg = torch.ones(3), torch.zeros(3, dtype=torch.int32)
+    with pytest.raises(ValueError, match="out_dtype"):
+        ops.segmented_reduce(vals, seg, 2, op="max", out_dtype=torch.int32)
+    with pytest.raises(ValueError, match="unknown segmented-reduce op"):
+        ops.segmented_reduce(vals, seg, 2, op="min")
+
+
+# --- Count-Min and HyperLogLog -------------------------------------------------
+
+DEPTH, WIDTH, NPROP = 4, 64, 500
+
+
+def _cms_inputs(seed, dtype):
+    rng = np.random.default_rng(seed)
+    big = 1 << 25  # counts past 2^24: float32 would round them
+    counts = rng.integers(0, big, (DEPTH, WIDTH)).astype(dtype)
+    cols = rng.integers(-1, WIDTH + 2, (DEPTH, NPROP)).astype(np.int32)
+    props = rng.integers(0, 2 * big, NPROP).astype(dtype)
+    return counts, cols, props
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("all_masked", [False, True])
+def test_cms_update_plain_matches_reference_and_pallas(dtype, all_masked):
+    counts, cols, props = _cms_inputs(40 + all_masked, dtype)
+    if all_masked:
+        cols[:] = -1
+    got = ops.cms_update(torch.from_numpy(counts), torch.from_numpy(cols),
+                         torch.from_numpy(props))
+    assert got.dtype == torch.from_numpy(counts).dtype
+    jc, jcols, jp = jnp.asarray(counts), jnp.asarray(cols), jnp.asarray(props)
+    _assert_same(got, jax_ref.ref_cms_update(jc, jcols, jp))
+    _assert_same(got, cms_update_pallas(jc, jcols, jp, interpret=True))
+    if all_masked:
+        np.testing.assert_array_equal(got.numpy(), counts)
+    else:
+        assert (got.numpy() > counts).any()
+
+
+def test_cms_update_no_proposals_keeps_counts():
+    counts, _, _ = _cms_inputs(45, np.int32)
+    got = ops.cms_update(torch.from_numpy(counts),
+                         torch.empty((DEPTH, 0), dtype=torch.int32),
+                         torch.empty(0, dtype=torch.int32))
+    np.testing.assert_array_equal(got.numpy(), counts)
+
+
+def test_hll_update_matches_reference_and_pallas():
+    rng = np.random.default_rng(50)
+    m = 64
+    regs = rng.integers(0, 6, m).astype(np.float32)
+    ids = rng.integers(-1, m + 1, N).astype(np.int32)
+    rhos = rng.integers(1, 22, N).astype(np.int32)
+    got = ops.hll_update(torch.from_numpy(regs), torch.from_numpy(ids),
+                         torch.from_numpy(rhos))
+    jr, ji, jh = jnp.asarray(regs), jnp.asarray(ids), jnp.asarray(rhos)
+    _assert_same(got, jax_ref.ref_hll_update(jr, ji, jh))
+    _assert_same(got, hll_update_pallas(jr, ji, jh, interpret=True))
+
+
+def test_new_kernels_dispatch_by_device():
+    segmax_before, cms_before = segmax_kernel.LAUNCHES, sketch_kernel.LAUNCHES
+    cpu_i32 = torch.zeros(4, dtype=torch.int32)
+    ops.segmented_reduce(torch.ones(4), cpu_i32, 3, op="max")
+    ops.hll_update(torch.zeros(3), cpu_i32, cpu_i32)
+    ops.cms_update(torch.zeros((2, 3), dtype=torch.int32),
+                   torch.zeros((2, 4), dtype=torch.int32), cpu_i32)
+    assert segmax_kernel.LAUNCHES == segmax_before
+    assert sketch_kernel.LAUNCHES == cms_before
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.cms_update(torch.zeros((2, 3), dtype=torch.int32),
+                       torch.zeros((2, 4), dtype=torch.int32), cpu_i32,
+                       backend="cuda")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.hll_update(torch.zeros(3), cpu_i32, cpu_i32, backend="cuda")

@@ -2,35 +2,19 @@
 numpy-seeded inputs: mix32, the packed sort, segment structure, group-by,
 the plan, factorize, argmax top-k and the permutations — whole buffers,
 tail padding included, bit for bit."""
-import contextlib
-
-import jax
-import jax.experimental
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from _torch_parity import x64_shim  # noqa: F401  (fixture)
 from repro.core import ops as jops
 from repro.core import plan as jplan
 from repro_torch.core import ops, plan
 
+pytestmark = pytest.mark.usefixtures("x64_shim")
+
 I32_MIN, I32_MAX = -(2 ** 31), 2 ** 31 - 1
-
-
-@pytest.fixture(autouse=True)
-def x64_shim(monkeypatch):
-    """The reference's packed sort calls ``jax.experimental.enable_x64``,
-    which JAX 0.9 removed; stand in ``jax.enable_x64(True)`` where it is
-    missing, and nothing where it exists."""
-    if not hasattr(jax.experimental, "enable_x64"):
-        @contextlib.contextmanager
-        def enable_x64():
-            with jax.enable_x64(True):
-                yield
-
-        monkeypatch.setattr(jax.experimental, "enable_x64", enable_x64,
-                            raising=False)
 
 
 def _t(a):

@@ -1,15 +1,29 @@
 #!/usr/bin/env python3
 """Where the time of the port's device phases goes, on one NVIDIA card.
 
-Builds the challenge table at ``--scale`` (``method="hash"``), then for the
-build, anonymize and analyze phases (analyze with and without the fused
-epilogue) measures the host wall of ``--reps`` calls, each ending in
-``torch.cuda.synchronize()``, and traces one more call with
+Builds the challenge table at ``--scale`` (``method="hash"``), then for
+each phase named in ``--phases`` measures the host wall of ``--reps`` calls,
+each ending in ``torch.cuda.synchronize()``, and traces one more call with
 ``torch.profiler``: the device's busy time (the union of its kernel and
 copy intervals), its idle share of the traced wall, and the kernels that
 take the most device time.  One JSON line per phase; needs a card.
 
+Phases: ``build_device``, ``anonymize``, ``analyze`` and ``analyze_fused``
+(the default set); ``bfs`` (from the heaviest link's source),
+``components``, ``pagerank`` and ``triangles`` over the anonymized
+table's CSR pair, as ``analyze(algorithms=True)`` runs them;
+``sketch_batch``, one ``update_sketch`` of the capture's first 2^15 rows;
+and, on random inputs of ``chip_smoke.py``'s shapes (no table is built for
+them), 20 back-to-back calls of one kernel wrapper or of the one PyTorch
+call that computes the same function: ``segmax_vxm`` (2^20 float32 values
+into 2^21 segments with ``valid_mask``), ``hll_fold`` (2^15 rows into 4,096
+registers with ``init``) and ``cms_fold`` (int32 (4, 4096) cells, 2^15
+proposals), each with a ``_library`` twin (``scatter_reduce_``, ``amax``).
+Their device events split each wrapper's device time from its host work.
+
     python3 tools/profile_torch_challenge.py --scale 24
+    python3 tools/profile_torch_challenge.py --scale 20 --phases bfs components pagerank triangles
+    python3 tools/profile_torch_challenge.py --phases hll_fold hll_fold_library
 """
 from __future__ import annotations
 
@@ -79,11 +93,117 @@ def profile_phase(name, fn, reps, top):
     }
 
 
+TABLE_PHASES = ("build_device", "anonymize", "analyze", "analyze_fused", "bfs",
+                "components", "pagerank", "triangles", "sketch_batch")
+KERNEL_PHASES = tuple(f"{k}{s}" for k in ("segmax_vxm", "hll_fold", "cms_fold")
+                      for s in ("", "_library"))
+PHASES = TABLE_PHASES + KERNEL_PHASES
+CALLS = 20  # back-to-back calls per kernel phase
+
+
+def kernel_phases(dev):
+    """The kernel phases: each runs CALLS calls of a wrapper (``backend=
+    "cuda"``) or of its library twin on inputs pre-masked for it."""
+    import torch
+    from repro_torch.kernels.ops import cms_update, hll_update, segmented_reduce
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    rand = lambda lo, hi, *shape: torch.randint(lo, hi, shape, generator=g,
+                                                device=dev, dtype=torch.int32)
+    ninf = float("-inf")
+    n, segs = 1 << 20, 2 << 20
+    vals = torch.randn(n, generator=g, device=dev)
+    seg = torch.where(rand(0, 8, n) == 0, -1, rand(0, segs, n))
+    mask = rand(0, 4, segs) != 0
+    spill = torch.where(seg >= 0, seg, segs).long()
+    m, rows = 4096, 1 << 15
+    regs = rand(0, 20, m).float()
+    reg_ids = torch.where(rand(0, 16, rows) == 0, -1, rand(0, m, rows))
+    rhos = rand(1, 22, rows)
+    spill_h = torch.where(reg_ids >= 0, reg_ids, m).long()
+    regs_spill, rhos_f = torch.cat([regs, regs.new_full((1,), ninf)]), rhos.float()
+    depth = 4
+    counts = rand(0, 1 << 26, depth, m)
+    cols = torch.where(rand(0, 4, 1, rows) == 0, -1, rand(0, m, depth, rows))
+    props = rand(0, 1 << 27, rows)
+    keep = cols >= 0
+    flat = (torch.arange(depth, device=dev)[:, None] * m + cols)[keep].long()
+    flat_props, flat_counts = props.expand(depth, rows)[keep], counts.reshape(-1)
+    one = {
+        "segmax_vxm": lambda: segmented_reduce(
+            vals, seg, segs, op="max", valid_mask=mask, retire=ninf,
+            backend="cuda"),
+        "segmax_vxm_library": lambda: torch.full(
+            (segs + 1,), ninf, device=dev).scatter_reduce_(0, spill, vals, "amax"),
+        "hll_fold": lambda: hll_update(regs, reg_ids, rhos, backend="cuda"),
+        "hll_fold_library": lambda: regs_spill.clone().scatter_reduce_(
+            0, spill_h, rhos_f, "amax"),
+        "cms_fold": lambda: cms_update(counts, cols, props, backend="cuda"),
+        "cms_fold_library": lambda: flat_counts.clone().scatter_reduce_(
+            0, flat, flat_props, "amax"),
+    }
+
+    def repeat(fn):
+        def calls():
+            for _ in range(CALLS):
+                fn()
+        return calls
+    return {k: repeat(fn) for k, fn in one.items()}
+
+
+def table_phases(args, dev):
+    """The phases over the challenge table at ``--scale``."""
+    import torch
+    from repro_torch.challenge.pipeline import (ChallengeConfig, analyze,
+                                                build_columns, read_phase)
+    from repro_torch.convert import table_from_numpy
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core.anonymize import anonymize
+    from repro_torch.core.queries import (table_csrs, top_links_from_plan,
+                                          traffic_matrix, unique_ips)
+    from repro_torch.core.plan import plan_for_table
+    from repro_torch.core.sketch import SketchConfig, init_sketch, update_sketch
+
+    cfg = ChallengeConfig(scale=args.scale, method="hash", device=str(dev))
+    with tempfile.TemporaryDirectory(prefix="profile_torch_") as workdir:
+        src, dst, win, n = build_columns(read_phase(cfg, workdir), cfg)
+    cols = {"src": src, "dst": dst, "win": win}
+    table = table_from_numpy(cols, n, dev)
+    anon = anonymize(table, method="hash").table
+    print(json.dumps({"packets": n}))
+    kw = dict(n_windows=cfg.n_windows, ip_bins=cfg.ip_bins, k=cfg.top_k,
+              device=dev)
+    phases = {
+        "build_device": lambda: traffic_matrix(table_from_numpy(cols, n, dev)),
+        "anonymize": lambda: anonymize(table, method="hash"),
+        "analyze": lambda: analyze(anon, **kw),
+        "analyze_fused": lambda: analyze(anon, fused_epilogue=True, **kw),
+    }
+    if {"bfs", "components", "pagerank", "triangles"} & set(args.phases):
+        csr_src, csr_dst = table_csrs(anon)
+        nv, n_live = 2 * anon.capacity, unique_ips(anon).n_unique
+        source = int(top_links_from_plan(plan_for_table(anon), 1).src[0])
+        phases.update({
+            "bfs": lambda: alg.bfs_levels(csr_src, source, nv, n_live=n_live),
+            "components": lambda: alg.connected_components(
+                csr_src, nv, csr_t=csr_dst, n_live=n_live),
+            "pagerank": lambda: alg.pagerank(csr_src, nv, n_live=n_live),
+            "triangles": lambda: alg.triangle_counts(csr_src, nv),
+        })
+    if "sketch_batch" in args.phases:
+        state = init_sketch(SketchConfig(), dev)
+        m = min(n, 1 << 15)
+        batch = [torch.from_numpy(c[:1 << 15].copy()).to(dev) for c in (src, dst)]
+        phases["sketch_batch"] = lambda: update_sketch(state, *batch, m)
+    return phases
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=24)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--phases", nargs="+", choices=PHASES, default=PHASES[:4])
     args = ap.parse_args(argv)
 
     import torch
@@ -91,33 +211,15 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_torch_challenge: torch sees no CUDA device", file=sys.stderr)
         return 1
-    from repro_torch.challenge.pipeline import (ChallengeConfig, analyze,
-                                                build_columns, read_phase)
-    from repro_torch.convert import table_from_numpy
-    from repro_torch.core.anonymize import anonymize
-    from repro_torch.core.queries import traffic_matrix
-
     dev = torch.device("cuda", 0)
-    cfg = ChallengeConfig(scale=args.scale, method="hash", device=str(dev))
-    with tempfile.TemporaryDirectory(prefix="profile_torch_") as workdir:
-        src, dst, win, n = build_columns(read_phase(cfg, workdir), cfg)
-    cols = {"src": src, "dst": dst, "win": win}
-    table = table_from_numpy(cols, n, dev)
-    anon = anonymize(table, method="hash").table
     print(json.dumps({"device": torch.cuda.get_device_name(dev),
-                      "torch": torch.__version__, "scale": args.scale,
-                      "packets": n}))
-    phases = [
-        ("build_device", lambda: traffic_matrix(table_from_numpy(cols, n, dev))),
-        ("anonymize", lambda: anonymize(table, method="hash")),
-    ]
-    for fused in (False, True):
-        kw = dict(n_windows=cfg.n_windows, ip_bins=cfg.ip_bins, k=cfg.top_k,
-                  fused_epilogue=fused, device=dev)
-        phases.append((f"analyze{'_fused' if fused else ''}",
-                       lambda kw=kw: analyze(anon, **kw)))
-    for name, fn in phases:
-        print(json.dumps(profile_phase(name, fn, args.reps, args.top)), flush=True)
+                      "torch": torch.__version__, "scale": args.scale}))
+    phases = kernel_phases(dev) if set(KERNEL_PHASES) & set(args.phases) else {}
+    if set(TABLE_PHASES) & set(args.phases):
+        phases.update(table_phases(args, dev))
+    for name in args.phases:
+        print(json.dumps(profile_phase(name, phases[name], args.reps, args.top)),
+              flush=True)
     return 0
 
 
