@@ -7,7 +7,7 @@ Run from the root of a checkout, with no arguments:
 
 Phases (any failure exits non-zero):
 
-1. Card and build: print the card's name and power limit, build the three
+1. Card and build: print the card's name and power limit, build the five
    CUDA sources under ``src/repro_torch/kernels/csrc/`` in parallel (one
    ``nvcc`` each) and print each ``-Xptxas -v`` report.
 2. Kernels against their plain versions on the card, at the main path's
@@ -42,10 +42,41 @@ Phases (any failure exits non-zero):
 5. The CLI, ``python -m repro_torch.challenge.run --algorithms --tier both``,
    with its other defaults (the card, shuffle anonymization) at scale 18:
    exit 0, all three oracle lines and every kernel launched.
+6. The attention and segment-sum kernels against their plain versions,
+   each shape timed beside the plain version, one PyTorch call that
+   computes the same function (``scaled_dot_product_attention``,
+   ``index_add_``) and the bound (operations over the bf16 tensor-core peak
+   or bytes over the memory rate, the larger):
+   * attention, each output row within 2^-7 relative L2 of the plain
+     version's in bfloat16: (p) granite prefill, B 4, 32/8 heads, L 2,048,
+     D 128, causal; (d) granite decode, one query against cuts of a
+     2,080-slot cache (a strided view); (m) minicpm prefill, 36 heads MHA,
+     D 64; (w) a 4,096 sliding window over L 8,192; beside (p), (d) and
+     (w), two planted faults that the check must reject (the newest key
+     dropped, the output scaled by 0.98); then edge cases in float32 (to
+     1e-4) and bfloat16 (lq < lkv, lengths off the 64-row tiles and on
+     them, non-causal, lq > lkv);
+   * segment sum at the GNN regimes of ``configs/common_gnn.py``: molecule
+     (8,192 edges x 64 features into 4,096 segments) and full_graph_sm
+     (10,752 x 1,433 into 2,816, 196 padding edges at the capacity):
+     integer-valued floats bit-equal, random floats within a reordering
+     tolerance; then ``ops.segment_reduce`` as a GNN aggregation calls it
+     (``backend="auto"``), once per regime: the entry point's own run.
+7. LM serving at full size: granite-8b, 36 layers, d_model 4,096, bf16,
+   weights drawn on the card from ``SEED``; four requests of 2,048 random
+   tokens prefilled into a 2,080-slot cache, then 32 greedy decode steps,
+   through the attention kernel (once to warm up, once counted and timed),
+   then on the same weights and tokens through the plain attention; last-
+   token logits compared at every step by relative L2 error (limit
+   0.025), greedy tokens wherever the plain logits' top-2 margin exceeds
+   twice the gap; 36 x 33 attention launches; then a control, the kernel
+   path with the newest key left out of each decode step's attention,
+   which the limit must reject at every step.
 
 Then it prints one JSON line of kernel records, whose launch counts are
 those of the main path's runs (phases 3, 4 and 5, without the algorithms
-timed on their own), the card line again, and as its last line
+timed on their own; the segment-sum entry point's run of phase 6; phase
+7's counted run), the card line again, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout (no ``src/repro_torch``), it exits non-zero before printing any
 result.
@@ -71,13 +102,38 @@ ALGO_SCALE = 20             # the graph-algorithm pass (docstring, phase 4)
 CLI_SCALE = 18
 N_WINDOWS, IP_BINS = 8, 1024
 SKETCH_BATCH = 1 << 15      # run_sketch_tier's micro-batch
-SOURCES = ("histogram", "segreduce", "sketch")
-# The bound of each timed shape is its bytes (each input read once, each
-# output written once) over the H100 SXM's memory rate; its operations, one
-# add or compare per row, would take n / 67e12 s at the float32 peak, some
-# 160x less.
+SOURCES = ("histogram", "segreduce", "sketch", "flash_attention", "segment_matmul")
+# The bound of each timed shape is the larger of its bytes (each input read
+# once, each output written once) over the H100 SXM's memory rate and its
+# operations over the peak for their type.  For the histogram, segment max,
+# Count-Min and segment sum, one add or compare per row or element would
+# take n / 67e12 s at the float32 peak, far less than the bytes; attention's
+# products count at the dense bf16 tensor-core peak.
 HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
 REPS = 20
+SEED = 0
+# Phase 6 holds every row of an attention output (one query of one head of
+# one request) by its relative L2 error against the plain version's row: at
+# the main path's shapes the outputs are small (|o| about 0.03 at lkv 2,049),
+# so a limit on |diff| must scale with the row, not with 1 + |o|.  In
+# bfloat16, sound runs reach 0.0052 (P and the output round at 2^-8) and
+# planted faults 0.021 and more (the newest key left out of every row; the
+# output scaled by ATTN_FAULT_SCALE); the controls run beside each main
+# shape and must be rejected.  Float32 runs reach 7e-7.
+ATTN_ROW_RTOL = {"bfloat16": 2.0 ** -7, "float32": 1e-4}
+ATTN_FAULT_SCALE = 0.98
+# LM serving (phase 7): four requests, 2,048-token prompts, 32 decode steps
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 2048, 32
+# Relative L2 error of the kernel path's logits against the plain path's, at
+# each of the 33 calls.  The kernel rounds P to bf16 before P V, where the
+# plain version keeps float32; through 36 layers of random weights that gives
+# 0.0202-0.0213 on an H100, flat over the decode steps.  A control with the
+# newest key left out of every decode step's attention gives 0.029-0.079 at
+# the decode steps (PERF.md, section 6); the limit lies between the two, and
+# the control must exceed it at every step.  Finer faults are phase 6's to
+# catch: random weights carry a one-key fault to the logits weakly.
+SERVE_TOL = 0.025
 
 
 def log(msg: str) -> None:
@@ -107,17 +163,26 @@ def build_kernels() -> None:
 
 
 def reset_launches() -> None:
-    from repro_torch.kernels import histogram, segreduce, sketch
+    from repro_torch.kernels import (flash_attention, histogram, segment_matmul,
+                                     segreduce, sketch)
 
-    for mod in (histogram, segreduce, sketch):
+    for mod in (histogram, segreduce, sketch, flash_attention, segment_matmul):
         mod.LAUNCHES = 0
+    sketch.HLL_LAUNCHES = 0
 
 
 def read_launches() -> dict:
-    from repro_torch.kernels import histogram, segreduce, sketch
+    from repro_torch.kernels import (flash_attention, histogram, segment_matmul,
+                                     segreduce, sketch)
 
     return {"histogram": histogram.LAUNCHES, "segment_max": segreduce.LAUNCHES,
-            "cms_update": sketch.LAUNCHES}
+            "cms_update": sketch.LAUNCHES, "hll_update": sketch.HLL_LAUNCHES,
+            "flash_attention": flash_attention.LAUNCHES,
+            "segment_matmul": segment_matmul.LAUNCHES}
+
+
+# the kernels a phase of the challenge never launches
+NO_LM_OR_GNN = {"flash_attention": 0, "segment_matmul": 0}
 
 
 def time_ms(fn) -> float:
@@ -464,7 +529,8 @@ def main_path(dev, workdir: str):
         # the warm pass runs analyze a second time
         per_analyze = 1 + (2 * N_WINDOWS * 4 + 1 if fused else 0)
         want = {"histogram": per_analyze * (2 if cfg.warm else 1),
-                "segment_max": 0, "cms_update": 0}
+                "segment_max": 0, "cms_update": 0, "hll_update": 0,
+                **NO_LM_OR_GNN}
         if launches[name] != want:
             raise AssertionError(f"{name}: kernel launches {launches[name]}, "
                                  f"the code implies {want}")
@@ -510,7 +576,8 @@ def main_path(dev, workdir: str):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches["sketch_tier"] = read_launches()
-    want = {"histogram": 0, "segment_max": 3 * batches, "cms_update": 2 * batches}
+    want = {"histogram": 0, "segment_max": 3 * batches, "cms_update": 2 * batches,
+            "hll_update": 3 * batches, **NO_LM_OR_GNN}
     if launches["sketch_tier"] != want:
         raise AssertionError(f"sketch tier: kernel launches "
                              f"{launches['sketch_tier']}, the code implies {want}")
@@ -556,7 +623,8 @@ def algorithm_pass(dev, workdir: str):
     want_max = 2 * (bfs_it + 2 * cc_it)
     warm_pr = got["histogram"] - 2 * 2 - pr_it
     if (got["segment_max"] != want_max or abs(warm_pr - pr_it) > 1
-            or got["cms_update"] != 0):
+            or got["cms_update"] != 0 or got["hll_update"] != 0
+            or any(got[k] for k in NO_LM_OR_GNN)):
         raise AssertionError(f"algorithm pass: kernel launches {got}, the code "
                              f"implies segment_max {want_max} and histogram "
                              f"4 + {pr_it} + ({pr_it} +- 1)")
@@ -608,7 +676,7 @@ def algorithm_pass(dev, workdir: str):
             "pagerank": {"histogram": int(pr.iterations), "segment_max": 0},
             "triangles": {"histogram": 1, "segment_max": 0}}
     for name, w in want.items():
-        if counts[name] != {**w, "cms_update": 0}:
+        if counts[name] != {**w, "cms_update": 0, "hll_update": 0, **NO_LM_OR_GNN}:
             raise AssertionError(f"{name} alone: launches {counts[name]}, the "
                                  f"code implies {w}")
     log(f"[algorithms] alone, ms (synchronized before and after): "
@@ -639,10 +707,388 @@ def cli_algorithms_and_sketch() -> dict:
                  "all sketch estimates within their configured bounds"):
         if line not in text:
             raise AssertionError(f"the CLI did not print {line!r}")
-    if not all(launches.values()):
+    if not all(launches[k] for k in launches if k not in NO_LM_OR_GNN):
         raise AssertionError(f"the CLI launched no kernel of {launches}")
     log(f"[cli] kernel launches {launches}")
     return launches
+
+
+def _visible_keys(lq, lkv, causal, window):
+    """Keys summed over rows that a query sees, under end alignment: the
+    work attention needs on these inputs."""
+    total = 0
+    for i in range(lq):
+        pos = i + lkv - lq
+        hi = min(lkv, pos + 1) if causal else lkv
+        lo = max(0, pos - window + 1) if window else 0
+        total += max(0, hi - lo)
+    return total
+
+
+def _attention_bound(q, k, v, causal, window):
+    """(ms, "operations" or "bytes"): 4 * D flops per query-key pair (QK^T
+    and PV) at the bf16 tensor-core peak, against q, k, v read once and o
+    written once at the memory rate."""
+    b, hq, lq, d = q.shape
+    lkv = k.shape[2]
+    flops = 4 * b * hq * d * _visible_keys(lq, lkv, causal, window)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _row_error(got, want):
+    """Relative L2 error of each output row (one query of one head of one
+    request): ``||got - want|| / (||want|| + 1e-6)``; a row that sees no
+    key is 0 on both sides, so its error is 0 unless the kernel's is not."""
+    diff = (got.float() - want.float()).norm(dim=-1)
+    return diff / (want.float().norm(dim=-1) + 1e-6)
+
+
+def check_attention(dev):
+    """Phase 6: the attention kernel against its plain version on the card.
+    Returns (max_abs_err, timed shape records)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.ops import attention
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    rnd = lambda dtype, *shape: torch.randn(*shape, generator=g, device=dev).to(dtype)
+    bf16, f32 = torch.bfloat16, torch.float32
+    max_err = 0.0
+    shapes = []
+    failed = []
+
+    def compare(name, q, k, v, causal, window=None):
+        nonlocal max_err
+        got = attention(q, k, v, causal=causal, window=window, backend="cuda")
+        want = attention(q, k, v, causal=causal, window=window, backend="torch")
+        rows = _row_error(got, want)
+        err = (got.float() - want.float()).abs().max().item()
+        tol = ATTN_ROW_RTOL[str(q.dtype).removeprefix("torch.")]
+        log(f"  {name}: max row relative L2 {rows.max().item():.4g} (limit "
+            f"{tol:.4g}), max |diff| {err:.3g}")
+        if got.dtype != want.dtype or not bool(torch.isfinite(got).all()) or not (
+                rows.max().item() <= tol):
+            failed.append(name)
+        max_err = max(max_err, err)
+        return want
+
+    def control(name, q, k, v, causal, window, want):
+        """Planted faults the check must reject: the kernel with the newest
+        key left out of every row (keys cut by one, the window narrowed by
+        one: end alignment keeps each row's older keys), and the kernel's
+        output scaled by ATTN_FAULT_SCALE."""
+        tol = ATTN_ROW_RTOL[str(q.dtype).removeprefix("torch.")]
+        faults = {
+            "newest key dropped": attention(
+                q, k[:, :, :-1], v[:, :, :-1], causal=causal,
+                window=None if window is None else window - 1, backend="cuda"),
+            f"output x {ATTN_FAULT_SCALE}": ATTN_FAULT_SCALE * attention(
+                q, k, v, causal=causal, window=window, backend="cuda"),
+        }
+        for fault, got in faults.items():
+            rows = _row_error(got, want)
+            log(f"  control {name}, {fault}: max row relative L2 "
+                f"{rows.max().item():.4g}, {(rows > tol).float().mean().item():.3%} "
+                f"of rows over the limit")
+            if not rows.max().item() > tol:
+                failed.append(f"control {name}, {fault}: not rejected")
+
+    def timed(case, q, k, v, causal, window=None):
+        b, hq, lq, d = q.shape
+        if window is None:
+            library = lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal and lq > 1, enable_gqa=True)
+        else:  # no window argument: a boolean mask of the band
+            pos = torch.arange(lq, device=dev)[:, None] + (k.shape[2] - lq)
+            kpos = torch.arange(k.shape[2], device=dev)[None, :]
+            band = (kpos <= pos) & (pos - kpos < window)
+            library = lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=band, enable_gqa=True)
+        bound, by = _attention_bound(q, k, v, causal, window)
+        shapes.append({
+            "case": case,
+            "ms": time_ms(lambda: attention(q, k, v, causal=causal, window=window,
+                                            backend="cuda")),
+            "plain_ms": time_ms(lambda: attention(q, k, v, causal=causal,
+                                                  window=window, backend="torch")),
+            "library_ms": time_ms(library), "bound_ms": bound, "bound_by": by,
+        })
+
+    # (p) granite prefill: 4 x 2,048 tokens, 32 query heads on 8 kv heads
+    q, k, v = rnd(bf16, 4, 32, 2048, 128), rnd(bf16, 4, 8, 2048, 128), rnd(bf16, 4, 8, 2048, 128)
+    want = compare("(p) granite prefill, B 4, 32/8 heads, L 2048, D 128, causal",
+                   q, k, v, True)
+    control("(p)", q, k, v, True, None, want)
+    timed("p: bf16 q (4, 32, 2048, 128), k/v (4, 8, 2048, 128), causal", q, k, v, True)
+
+    # (d) granite decode: one query per request against the written cut of a
+    # 2,080-slot cache (2,048 prompt slots + 32 steps), at the first step,
+    # the 31st (a strided view) and the last
+    cache = rnd(bf16, 2, 4, 8, 2080, 128)
+    q1 = rnd(bf16, 4, 1, 32, 128).transpose(1, 2)  # the model's layout
+    for n in (2049, 2079, 2080):
+        want = compare(f"(d) granite decode, lq 1, lkv {n} of 2,080 slots",
+                       q1, cache[0][:, :, :n], cache[1][:, :, :n], True)
+        control(f"(d) lkv {n}", q1, cache[0][:, :, :n], cache[1][:, :, :n], True,
+                None, want)
+    timed("d: bf16 q (4, 32, 1, 128), k/v views (4, 8, 2079, 128) of a 2,080-slot "
+          "cache", q1, cache[0][:, :, :2079], cache[1][:, :, :2079], True)
+
+    # (m) minicpm prefill: 36 heads MHA, head size 64
+    q, k, v = (rnd(bf16, 4, 36, 2048, 64) for _ in range(3))
+    compare("(m) minicpm prefill, B 4, 36 heads MHA, L 2048, D 64, causal", q, k, v, True)
+    timed("m: bf16 q/k/v (4, 36, 2048, 64), causal", q, k, v, True)
+    del q, k, v
+
+    # (w) mixtral's 4,096 sliding window over 8,192 tokens
+    q, k, v = rnd(bf16, 1, 32, 8192, 128), rnd(bf16, 1, 8, 8192, 128), rnd(bf16, 1, 8, 8192, 128)
+    want = compare("(w) window 4096, B 1, 32/8 heads, L 8192, D 128, causal",
+                   q, k, v, True, 4096)
+    control("(w)", q, k, v, True, 4096, want)
+    del want
+    timed("w: bf16 q (1, 32, 8192, 128), k/v (1, 8, 8192, 128), causal, window 4096",
+          q, k, v, True, 4096)
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # edge cases, float32 (the CUDA-core kernel) and bfloat16 (the mma one):
+    # chunked prefill lq < lkv, lengths off and on the 64-row tiles, a
+    # non-causal pass, decode, lq > lkv (leading rows see no key: 0)
+    edges = [
+        ("lq 100 < lkv 300", (2, 8, 2, 100, 300, 128), True, None),
+        ("L 200 (off the tiles)", (1, 4, 4, 200, 200, 64), True, None),
+        ("L 64 and 128 (whole tiles)", (1, 4, 2, 64, 128, 128), True, None),
+        ("L 128, non-causal", (2, 4, 2, 128, 128, 128), False, None),
+        ("L 257, non-causal, window 100", (1, 4, 1, 257, 257, 64), False, 100),
+        ("decode, lkv 77", (3, 8, 2, 1, 77, 128), True, None),
+        ("lq 70 > lkv 40", (1, 2, 2, 70, 40, 64), True, None),
+        ("D 32, window 1", (1, 2, 2, 96, 96, 32), True, 1),
+    ]
+    for dtype in (f32, bf16):
+        for name, (b, hq, hkv, lq, lkv, d), causal, window in edges:
+            compare(f"({'f32' if dtype == f32 else 'bf16'}) {name}",
+                    rnd(dtype, b, hq, lq, d), rnd(dtype, b, hkv, lkv, d),
+                    rnd(dtype, b, hkv, lkv, d), causal, window)
+    if failed:
+        raise AssertionError("attention: " + "; ".join(failed))
+    return max_err, shapes
+
+
+# GNN regimes of configs/common_gnn.py: (edges, real edges, features,
+# segments = node capacity, real nodes)
+GNN_REGIMES = {
+    "molecule": (8192, 8192, 64, 4096, 3840),
+    "full_graph_sm": (10752, 10556, 1433, 2816, 2708),
+}
+
+
+def _gnn_inputs(g, dev, regime):
+    """Random receivers (seeded) over the real nodes, the padding edges
+    pointing at the capacity (dropped), and random senders' features."""
+    import torch
+
+    n, real, d, segs, nodes = GNN_REGIMES[regime]
+    recv = torch.randint(0, nodes, (n,), generator=g, device=dev, dtype=torch.int32)
+    recv[real:] = segs
+    feats = torch.randn(nodes, d, generator=g, device=dev)
+    send = torch.randint(0, nodes, (n,), generator=g, device=dev)
+    return feats, send, recv, segs
+
+
+def check_segment_sum(dev):
+    """Phase 6: the segment-sum kernel against its plain version at the GNN
+    regimes.  Returns (max_abs_err, timed shape records)."""
+    import torch
+    from repro_torch.kernels.ops import segment_reduce
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    max_err = 0.0
+    shapes = []
+    for regime in GNN_REGIMES:
+        feats, send, recv, segs = _gnn_inputs(g, dev, regime)
+        n, d = send.shape[0], feats.shape[1]
+        # integer-valued messages: float sums exact in any order
+        ints = torch.randint(-8, 9, (n, d), generator=g, device=dev).float()
+        same(f"({regime}) {n} x {d} integer-valued -> {segs} segments",
+             segment_reduce(ints, recv, segs, backend="cuda"),
+             segment_reduce(ints, recv, segs, backend="torch"))
+        # random messages, gathered as a GNN layer gathers them; tolerance:
+        # a sum of k terms in any order is within (k-1) * 2^-24 * sum|x| of
+        # any other order
+        msgs = feats[send]
+        kern = lambda: segment_reduce(msgs, recv, segs, backend="cuda")
+        plain = lambda: segment_reduce(msgs, recv, segs, backend="torch")
+        got, want = kern().double(), plain().double()
+        spill = torch.where(recv < segs, recv, segs).long()
+        k_max = torch.bincount(spill, minlength=segs + 1)[:segs].max().item()
+        abs_sum = torch.zeros(segs + 1, d, dtype=torch.float64, device=dev
+                              ).index_add_(0, spill, msgs.abs().double())[:segs]
+        err = (got - want).abs()
+        if not bool((err <= 2 * k_max * 2.0 ** -24 * abs_sum).all()):
+            raise AssertionError(f"({regime}) random floats: max |diff| "
+                                 f"{err.max().item()} beyond tolerance")
+        max_err = max(max_err, err.max().item())
+        log(f"  ({regime}) random float messages: max |diff| "
+            f"{err.max().item():.3g} (tolerance 2 * {k_max} * 2^-24 * sum|x|)")
+        shapes.append({
+            "case": f"{regime}: x float32 ({n}, {d}), seg int32, {segs} segments",
+            "ms": time_ms(kern), "plain_ms": time_ms(plain),
+            "library_ms": time_ms(lambda: torch.zeros(segs + 1, d, device=dev)
+                                  .index_add_(0, spill, msgs)),
+            "bound_ms": (4 * n * d + 4 * n + 4 * segs * d) / HBM_BYTES_PER_S * 1e3,
+        })
+    return max_err, shapes
+
+
+def segment_reduce_path(dev) -> dict:
+    """Phase 6: ``ops.segment_reduce`` as a GNN layer's aggregation calls
+    it, ``backend="auto"``, once per regime: the entry point's own run.
+    Returns its launches."""
+    import torch
+    from repro_torch.kernels.ops import segment_reduce
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    inputs = {r: _gnn_inputs(g, dev, r) for r in GNN_REGIMES}
+    torch.cuda.synchronize()
+    reset_launches()
+    out = {r: segment_reduce(feats[send], recv, segs)
+           for r, (feats, send, recv, segs) in inputs.items()}
+    torch.cuda.synchronize()
+    launches = read_launches()
+    for r, agg in out.items():
+        segs, d = GNN_REGIMES[r][3], GNN_REGIMES[r][2]
+        if agg.shape != (segs, d) or not bool(torch.isfinite(agg).all()):
+            raise AssertionError(f"segment_reduce ({r}): bad aggregate")
+        if bool(agg[GNN_REGIMES[r][4]:].any()):
+            raise AssertionError(f"segment_reduce ({r}): padding nodes received")
+    if launches != {**{k: 0 for k in launches}, "segment_matmul": len(GNN_REGIMES)}:
+        raise AssertionError(f"segment_reduce: launches {launches}")
+    log(f"[segment_reduce] one GNN aggregation per regime: launches {launches}")
+    return launches
+
+
+def _greedy_run(model, tokens, cache, forced=None):
+    """Prefill then SERVE_STEPS greedy decode steps; ``forced`` replaces the
+    model's own tokens.  Returns (logits per call, tokens fed, prefill s,
+    decode s), synchronized."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(tokens, cache)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out, fed = [logits.float()], []
+    for i in range(SERVE_STEPS):
+        nxt = logits.argmax(-1) if forced is None else forced[i]
+        fed.append(nxt)
+        logits, cache = model.decode_step(nxt, cache)
+        out.append(logits.float())
+    torch.cuda.synchronize()
+    return torch.stack(out), torch.stack(fed), t1 - t0, time.perf_counter() - t1
+
+
+@contextlib.contextmanager
+def _newest_key_dropped():
+    """Phase 7's planted fault: every decode step's attention leaves out the
+    newest key, the one the step has just written into the cache."""
+    from repro_torch.models import transformer
+
+    attention = transformer.attention
+
+    def faulty(q, k, v, **kw):
+        if q.shape[2] == 1:
+            k, v = k[:, :, :-1], v[:, :, :-1]
+        return attention(q, k, v, **kw)
+
+    transformer.attention = faulty
+    try:
+        yield
+    finally:
+        transformer.attention = attention
+
+
+def serve_granite(dev):
+    """Phase 7: granite-8b at full size through the attention kernel, then
+    through the plain attention on the same weights and tokens.  Returns
+    (the counted run's launches, summary)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import granite_8b
+    from repro_torch.models.transformer import Transformer
+
+    cfg = dataclasses.replace(granite_8b.full_config(), attn_backend="cuda")
+    t0 = time.perf_counter()
+    model = Transformer(cfg, device=dev, seed=SEED)
+    plain_model = Transformer(dataclasses.replace(cfg, attn_backend="torch"),
+                              weights=dict(model.named_parameters()))
+    torch.cuda.synchronize()
+    log(f"[serve] {cfg.name}: {cfg.n_params:,} parameters drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    tokens = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT), generator=g,
+                           device=dev)
+    slots = SERVE_PROMPT + SERVE_STEPS
+    cache = model.init_kv_cache(SERVE_BATCH, slots)
+    _greedy_run(model, tokens, cache)  # warm-up: cuBLAS picks its kernels
+    cache = model.init_kv_cache(SERVE_BATCH, slots)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    logits, fed, prefill_s, decode_s = _greedy_run(model, tokens, cache)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = {**{k: 0 for k in launches},
+            "flash_attention": cfg.n_layers * (1 + SERVE_STEPS)}
+    if launches != want:
+        raise AssertionError(f"serving: launches {launches}, the code implies {want}")
+    del cache
+    plain, _, plain_prefill_s, plain_decode_s = _greedy_run(
+        plain_model, tokens, plain_model.init_kv_cache(SERVE_BATCH, slots), fed)
+    if not bool(torch.isfinite(logits).all()) or logits.shape != (
+            1 + SERVE_STEPS, SERVE_BATCH, cfg.vocab):
+        raise AssertionError(f"serving: logits {tuple(logits.shape)} not finite")
+    # the control: the kernel path with the planted fault, the same tokens
+    with _newest_key_dropped():
+        faulty, _, _, _ = _greedy_run(
+            model, tokens, model.init_kv_cache(SERVE_BATCH, slots), fed)
+    rel = ((logits - plain).norm(dim=-1) / plain.norm(dim=-1))  # (call, request)
+    ctrl = ((faulty - plain).norm(dim=-1) / plain.norm(dim=-1)).amax(dim=1)
+    gap = (logits - plain).abs().amax(dim=-1)
+    top2 = plain.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > 2 * gap
+    agree = logits.argmax(-1) == plain.argmax(-1)
+    summary = {
+        "prefill_s": prefill_s,
+        "prefill_tokens_per_s": SERVE_BATCH * SERVE_PROMPT / prefill_s,
+        "decode_ms_per_step": decode_s / SERVE_STEPS * 1e3,
+        "decode_tokens_per_s": SERVE_BATCH * SERVE_STEPS / decode_s,
+        "plain_prefill_s": plain_prefill_s,
+        "plain_decode_ms_per_step": plain_decode_s / SERVE_STEPS * 1e3,
+        "max_memory_allocated_bytes": peak,
+        "kv_cache_bytes": 2 * cfg.n_layers * SERVE_BATCH * cfg.n_kv_heads * slots
+        * cfg.head_dim * 2,
+        "logits_rel_l2_max": rel.max().item(),
+        "logits_rel_l2_prefill": rel[0].max().item(),
+        "logits_rel_l2_by_step": [round(x, 6) for x in rel.amax(dim=1).tolist()],
+        "control_rel_l2_by_step": [round(x, 6) for x in ctrl.tolist()],
+        "greedy_decided": int(decided.sum()), "greedy_agree": int(agree.sum()),
+        "greedy_total": int(agree.numel()),
+        "launches": launches,
+    }
+    log("[serve] " + json.dumps(summary))
+    if rel.max().item() > SERVE_TOL:
+        raise AssertionError(f"serving: logits relative L2 error "
+                             f"{rel.max().item()} above {SERVE_TOL}")
+    if not ctrl[1:].min().item() > SERVE_TOL:
+        raise AssertionError(f"serving: the control (newest key dropped) is within "
+                             f"{SERVE_TOL} at a decode step")
+    if not bool(agree[decided].all()):
+        raise AssertionError("serving: a greedy token differs where the plain "
+                             "logits' margin exceeds twice the gap")
+    return launches, summary
 
 
 def record(name, source, replaces, launches, max_err, shapes):
@@ -651,7 +1097,7 @@ def record(name, source, replaces, launches, max_err, shapes):
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": sum(launches.values()), "launches_by_run": launches,
         "max_abs_err": max_err, "ms": head["ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": "bytes",
+        "bound_ms": head["bound_ms"], "bound_by": head.get("bound_by", "bytes"),
         "library_ms": head["library_ms"], "shapes": shapes,
     }
     if not all(math.isfinite(rec[k]) for k in ("ms", "plain_ms", "bound_ms")):
@@ -693,10 +1139,28 @@ def main() -> int:
     log(f"\n== phase 5: the CLI with --algorithms --tier both, scale {CLI_SCALE}")
     cli_launches = cli_algorithms_and_sketch()
 
-    # launches of the main path's runs only; the algorithms timed alone are
-    # reported apart and counted nowhere
+    t0 = time.perf_counter()
+    log("\n== phase 6: attention and segment-sum kernels against their plain "
+        "versions")
+    for name, fn in (("flash_attention", check_attention),
+                     ("segment_matmul", check_segment_sum)):
+        checks[name] = fn(dev)
+        for s in checks[name][1]:
+            log("  " + json.dumps(s))
+    segsum_launches = segment_reduce_path(dev)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    log(f"\n== phase 7: LM serving, granite-8b at full size, {SERVE_BATCH} x "
+        f"{SERVE_PROMPT} prompt tokens, {SERVE_STEPS} decode steps")
+    serve_launches, serve = serve_granite(dev)
+    log(f"phase 6 took {t1 - t0:.1f} s, phase 7 {time.perf_counter() - t1:.1f} s")
+
+    # launches of the main path's runs only; the algorithms timed alone and
+    # the comparisons with the plain versions are counted nowhere
     by_kernel = lambda k, runs: {r: v[k] for r, v in runs.items() if v[k]}
-    launches = {**main_launches, "algorithms": algo_launches, "cli": cli_launches}
+    launches = {**main_launches, "algorithms": algo_launches, "cli": cli_launches,
+                "segment_reduce": segsum_launches, "serve": serve_launches}
+    hll_shape = [s for s in checks["segment_max"][1] if s["case"].startswith("h:")]
     kernels = [
         record("histogram", "src/repro_torch/kernels/csrc/histogram.cu",
                "src/repro/kernels/histogram.py:108",
@@ -704,15 +1168,24 @@ def main() -> int:
         record("segment_max", "src/repro_torch/kernels/csrc/segreduce.cu",
                "src/repro/kernels/segreduce.py:92",
                by_kernel("segment_max", launches), *checks["segment_max"]),
+        record("hll_update", "src/repro_torch/kernels/sketch.py",
+               "src/repro/kernels/sketch.py:130",
+               by_kernel("hll_update", launches), 0.0, hll_shape),
         record("cms_update", "src/repro_torch/kernels/csrc/sketch.cu",
                "src/repro/kernels/sketch.py:69",
                by_kernel("cms_update", launches), *checks["cms_update"]),
+        record("segment_matmul", "src/repro_torch/kernels/csrc/segment_matmul.cu",
+               "src/repro/kernels/segment_matmul.py:45",
+               by_kernel("segment_matmul", launches), *checks["segment_matmul"]),
+        record("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+               "src/repro/kernels/flash_attention.py:85",
+               by_kernel("flash_attention", launches), *checks["flash_attention"]),
     ]
     for rec in kernels:
         if rec["launches"] == 0:
             raise AssertionError(f"{rec['name']}: no launch on the main path")
     log(json.dumps({"sketch_tier_s": sketch_s, "algorithms_alone_ms": algo_ms,
-                    "algorithms_alone_launches": alone_launches}))
+                    "algorithms_alone_launches": alone_launches, "serve": serve}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

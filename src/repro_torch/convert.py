@@ -1,7 +1,7 @@
 """Carrying state between the JAX package and the port.
 
-The system has no weights: what crosses is the packet table going in, the
-sketch tier's state, and the results coming out.  :func:`table_from_numpy`
+What crosses is the packet table going in, the sketch tier's state, the
+results coming out, and a transformer's weights.  :func:`table_from_numpy`
 builds the port's ``Table`` from the host columns a JAX ``Table`` holds;
 :func:`sketch_state_from_numpy` builds the port's ``SketchState`` from a
 JAX ``SketchState``'s arrays, so both sides can fold the same batch into the
@@ -13,11 +13,14 @@ It reads fields by name and turns every leaf into a numpy array, so the same
 call flattens the reference's results (whose fields carry the same names)
 and the tests compare the two dicts key by key.  The challenge pipeline
 builds its packet table with :func:`table_from_numpy` too.
+:func:`transformer_params_from_numpy` builds the port's ``Transformer``
+from the reference's parameter pytree, so both compute with one set of
+weights.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping
+from typing import TYPE_CHECKING, Dict, Mapping
 
 import numpy as np
 import torch
@@ -25,7 +28,11 @@ import torch
 from .core.sketch import SketchState
 from .core.table import Table, resolve_device
 
-__all__ = ["table_from_numpy", "sketch_state_from_numpy", "results_to_numpy"]
+if TYPE_CHECKING:  # the model layer loads only when a transformer is built
+    from .models.transformer import Transformer, TransformerConfig
+
+__all__ = ["table_from_numpy", "sketch_state_from_numpy", "results_to_numpy",
+           "transformer_params_from_numpy"]
 
 
 def table_from_numpy(columns: Mapping[str, np.ndarray], n_valid: int,
@@ -85,3 +92,42 @@ def results_to_numpy(results) -> Dict[str, np.ndarray]:
     for f in dataclasses.fields(results):
         _flatten(f.name, getattr(results, f.name), out)
     return out
+
+
+def _weight(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":  # numpy has no bfloat16 of its own
+        a = a.astype(np.float32)
+    return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
+
+
+def transformer_params_from_numpy(params: Mapping, cfg: TransformerConfig,
+                                  device="cuda") -> Transformer:
+    """The port's ``Transformer`` on ``device`` holding the weights of the
+    reference's parameter pytree (``repro.models.transformer.init_params``:
+    layer weights stacked on a leading axis), its leaves as numpy arrays or
+    anything ``np.asarray`` takes, cast to ``cfg.dtype``.
+
+    The port keeps the reference's layout (dense weights ``(d_in, d_out)``,
+    ``y = x @ w``), so no weight is transposed; only the names change.
+    """
+    from .models.transformer import Transformer
+
+    device = resolve_device(device)
+    layers = params["layers"]
+    names = {
+        "embed": params["embed"]["table"],
+        "attn_norm": layers["attn_norm"]["g"],
+        "wq": layers["wq"]["w"], "wk": layers["wk"]["w"], "wv": layers["wv"]["w"],
+        "wo": layers["wo"]["w"],
+        "mlp_norm": layers["mlp_norm"]["g"],
+        "w_gate": layers["mlp"]["gate"]["w"], "w_up": layers["mlp"]["up"]["w"],
+        "w_down": layers["mlp"]["down"]["w"],
+        "final_norm": params["final_norm"]["g"],
+    }
+    if cfg.qkv_bias:
+        names.update(bq=layers["wq"]["b"], bk=layers["wk"]["b"], bv=layers["wv"]["b"])
+    if not cfg.tie_embeddings:
+        names["lm_head"] = params["lm_head"]["w"]
+    return Transformer(cfg, weights={k: _weight(v, cfg.dtype, device)
+                                     for k, v in names.items()})

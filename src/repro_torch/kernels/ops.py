@@ -1,5 +1,6 @@
 """Public kernel entry points with backend dispatch — the port of
-``repro/kernels/ops.py`` (the histogram, segment-max and sketch families).
+``repro/kernels/ops.py`` (the histogram, segment-max, sketch, segment-sum
+and attention families).
 
 ``backend`` picks the implementation:
 
@@ -12,7 +13,11 @@
 The reference's ``"auto"`` adds a size heuristic (Pallas only up to 4,096
 bins) that would keep the default run's 8,192 flat activity bins, and the
 vxm's ``2 * capacity`` vertex slots, off the kernels; the port has none,
-and no fallback: a kernel that fails to build or launch raises.
+and no fallback: a kernel that fails to build or launch raises.  The same
+holds for :func:`segment_reduce`: the reference keeps its one-hot matmul to
+``_MATMUL_SEGMENT_LIMIT`` segments because that kernel's work grows with
+the segment count, and the CUDA kernel, a scatter, does no such work, so
+it serves every size.
 """
 from __future__ import annotations
 
@@ -21,12 +26,14 @@ from typing import Optional
 import torch
 
 from . import ref
+from .flash_attention import flash_attention_cuda
 from .histogram import histogram_cuda
+from .segment_matmul import segment_matmul_cuda
 from .segreduce import segment_max_cuda
 from .sketch import cms_update_cuda, hll_update_cuda
 
 __all__ = ["histogram", "windowed_histogram", "segmented_reduce",
-           "cms_update", "hll_update"]
+           "cms_update", "hll_update", "segment_reduce", "attention"]
 
 _BACKENDS = ("auto", "torch", "cuda")
 
@@ -151,3 +158,38 @@ def hll_update(
     registers as ``init`` (the segment-max kernel on the card)."""
     impl = hll_update_cuda if _use_kernel(backend, reg_ids) else ref.ref_hll_update
     return impl(registers, reg_ids, rhos)
+
+
+def segment_reduce(
+    x: torch.Tensor,
+    seg_ids: torch.Tensor,
+    num_segments: int,
+    *,
+    backend: str = "auto",
+) -> torch.Tensor:
+    """Feature aggregation ``out[s, :] = sum_{i: seg_ids[i]==s} x[i, :]``
+    (GNN message passing): ids outside ``[0, num_segments)`` are dropped,
+    sums are float32 and so is the ``(num_segments, d)`` result, on both
+    paths, as the TPU kernel returns it."""
+    impl = (segment_matmul_cuda if _use_kernel(backend, seg_ids)
+            else ref.ref_segment_matmul)
+    return impl(x, seg_ids, num_segments)
+
+
+def attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    backend: str = "auto",
+) -> torch.Tensor:
+    """(Grouped-query) attention, q ``(B, Hq, Lq, D)`` against k, v ``(B,
+    Hkv, Lkv, D)``, the ends of the two ranges aligned; ``causal`` and
+    ``window`` (keys in ``(pos - window, pos]``) mask; float32 softmax, q's
+    type out.  The kernel reads strided views (a cut of a KV cache) in
+    place."""
+    impl = flash_attention_cuda if _use_kernel(backend, q) else ref.ref_attention
+    return impl(q, k, v, causal=causal, window=window, scale=scale)

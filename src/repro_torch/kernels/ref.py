@@ -11,7 +11,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["ref_histogram", "ref_segment_max", "ref_cms_update", "ref_hll_update"]
+__all__ = ["ref_histogram", "ref_segment_max", "ref_cms_update", "ref_hll_update",
+           "ref_segment_matmul", "ref_attention"]
 
 
 def ref_histogram(
@@ -124,3 +125,61 @@ def ref_hll_update(
     """HyperLogLog register fold: :func:`ref_segment_max` with the running
     registers as ``init`` (``repro/kernels/ref.py:166-176``)."""
     return ref_segment_max(rhos, reg_ids, registers.shape[0], init=registers)
+
+
+def ref_segment_matmul(
+    x: torch.Tensor, seg_ids: torch.Tensor, num_segments: int
+) -> torch.Tensor:
+    """Feature aggregation: ``out[s, :] = sum_{i: seg_ids[i]==s} x[i, :]``
+    (``repro/kernels/ref.py:179-188``); ids outside ``[0, num_segments)``
+    are dropped.
+
+    Sums in float32 and returns float32 ``(num_segments, d)`` whatever
+    ``x``'s type, as the TPU kernel ``segment_matmul_pallas`` does; the
+    reference's plain (``"xla"``) path returns ``x``'s type instead.
+    """
+    ok = (seg_ids >= 0) & (seg_ids < num_segments)
+    rows = torch.where(ok[:, None], x.to(torch.float32), 0.0)
+    return torch.zeros(num_segments + 1, x.shape[1], dtype=torch.float32,
+                       device=x.device).index_add_(
+        0, torch.where(ok, seg_ids, num_segments).long(), rows)[:num_segments]
+
+
+def ref_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """(Grouped-query) attention, the contract of ``repro/kernels/ref.py:191``
+    and of the TPU kernel ``flash_attention_pallas``.
+
+    q ``(B, Hq, Lq, D)``; k, v ``(B, Hkv, Lkv, D)`` with ``Hq % Hkv == 0``,
+    query head ``h`` reading kv head ``h // (Hq // Hkv)``.  The ends of the
+    two ranges align: query ``i`` sits at position ``i + Lkv - Lq``; with
+    ``causal`` it sees keys at or before it, with ``window`` only keys in
+    ``(pos - window, pos]``.  Computes in float32 and returns q's type.  A
+    row that sees no key (only when ``Lq > Lkv``) is 0, the kernel's
+    ``l == 0`` case; the reference gives NaN there.
+    """
+    b, hq, lq, d = q.shape
+    hkv, lkv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = (d ** -0.5) if scale is None else scale
+    kk = k.repeat_interleave(group, dim=1).to(torch.float32)
+    vv = v.repeat_interleave(group, dim=1).to(torch.float32)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32), kk) * scale
+    q_pos = torch.arange(lq, device=q.device)[:, None] + (lkv - lq)
+    k_pos = torch.arange(lkv, device=q.device)[None, :]
+    mask = torch.ones(lq, lkv, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    probs = torch.softmax(logits.masked_fill_(~mask, float("-inf")), dim=-1)
+    del logits  # (B, Hq, Lq, Lkv) float32: 8.6 GB at Lq = Lkv = 8192, Hq = 32
+    probs.masked_fill_(~mask.any(dim=-1, keepdim=True), 0.0)
+    return (probs @ vv).to(q.dtype)

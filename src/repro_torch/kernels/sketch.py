@@ -11,7 +11,7 @@ version is :func:`repro_torch.kernels.ref.ref_cms_update`.
 (``repro/kernels/sketch.py:130``), which holds no kernel of its own: an HLL
 register fold is a segmented max with the running registers as ``init``,
 so it calls :func:`repro_torch.kernels.segreduce.segment_max_cuda`, whose
-``LAUNCHES`` counts it.
+``LAUNCHES`` counts it; ``HLL_LAUNCHES`` here counts the folds among them.
 
 Both take CUDA tensors only and raise on anything else; the dispatch lives
 in :mod:`repro_torch.kernels.ops`.  ``LAUNCHES`` counts the CMS wrapper's
@@ -27,9 +27,10 @@ from . import build
 from .histogram import _check
 from .segreduce import segment_max_cuda
 
-__all__ = ["LAUNCHES", "cms_update_cuda", "hll_update_cuda"]
+__all__ = ["LAUNCHES", "HLL_LAUNCHES", "cms_update_cuda", "hll_update_cuda"]
 
 LAUNCHES = 0
+HLL_LAUNCHES = 0
 
 _CELL_DTYPES = (torch.float32, torch.int32)
 
@@ -96,4 +97,8 @@ def hll_update_cuda(
 ) -> torch.Tensor:
     """HyperLogLog register fold on the card: ``reg[j] = max(reg[j], max rho
     over j)``, the segment-max kernel with ``init=registers``."""
-    return segment_max_cuda(rhos, reg_ids, registers.shape[0], init=registers)
+    global HLL_LAUNCHES
+    out = segment_max_cuda(rhos, reg_ids, registers.shape[0], init=registers)
+    if reg_ids.shape[0]:  # segment_max_cuda launches nothing for no rows
+        HLL_LAUNCHES += 1
+    return out

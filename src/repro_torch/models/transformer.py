@@ -1,0 +1,260 @@
+"""The dense decoder-only transformer and its serving path — the port of
+``repro/models/transformer.py`` for qwen2, minicpm and granite.
+
+:class:`Transformer` holds the weights (layers stacked on a leading
+``n_layers`` axis, as the reference's pytree holds them) and serves:
+:meth:`~Transformer.forward` (inference only: no autograd path yet),
+:meth:`~Transformer.init_kv_cache`, :meth:`~Transformer.prefill` and
+:meth:`~Transformer.decode_step`, with the reference's names and semantics.
+Two differences:
+
+* the KV cache is written in place (the reference returns new arrays), and
+  its ``pos`` is a Python int;
+* attention on the cache runs on the cut ``cache[:, :, :n]`` of the slots
+  written so far, a strided view that the attention kernel reads where it
+  lies.  With the query and key ranges' ends aligned, that is exactly the
+  reference's ``"xla"`` path (``_gqa_chunked``, which masks the unwritten
+  slots by position).  The reference's ``"pallas"`` path hands the kernel
+  the whole static cache and attends to unwritten zero slots whenever the
+  cache is longer than what was written (ROADMAP queue 3 item 6).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..core.table import resolve_device
+from ..kernels.ops import attention
+from .layers import dense, dense_init, embedding_init, rmsnorm, swiglu
+
+__all__ = ["TransformerConfig", "Transformer", "weight_shapes"]
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    """The reference's ``TransformerConfig`` fields that serving reads.
+
+    Dropped, as the XLA program's or training's alone: ``remat``,
+    ``remat_policy``, ``act_pspec``, ``attn_chunk`` and
+    ``attn_mixed_precision``.  ``attn_backend`` is the port's
+    ``auto|torch|cuda`` (``kernels/ops.py``).  ``moe`` set raises in
+    :class:`Transformer`: the mixture-of-experts layers are not ported yet.
+    """
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    d_head: Optional[int] = None          # default d_model // n_heads
+    qkv_bias: bool = False                # qwen2
+    sliding_window: Optional[int] = None  # mixtral
+    moe: Optional[Any] = None
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = False          # minicpm
+    dtype: torch.dtype = torch.bfloat16
+    attn_backend: str = "auto"            # "auto" | "torch" | "cuda"
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_head or self.d_model // self.n_heads
+
+    @property
+    def n_params(self) -> int:
+        """Total parameter count (the reference's, dense)."""
+        d, dh = self.d_model, self.head_dim
+        attn = d * dh * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * dh * d
+        per_layer = attn + 3 * d * self.d_ff + 2 * d
+        embed = self.vocab * d * (1 if self.tie_embeddings else 2)
+        return self.n_layers * per_layer + embed + d
+
+
+def _rope_tables(positions: torch.Tensor, d: int, theta: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos and sin of ``transformer.py:160``'s angles, float32 ``(L, 1,
+    D/2)`` (broadcast over heads), computed once per call for every layer."""
+    inv = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32,
+                                        device=positions.device) / d))
+    f = positions.to(torch.float32)[:, None] * inv[None, :]
+    return torch.cos(f)[:, None], torch.sin(f)[:, None]
+
+
+def _rope(x: torch.Tensor, rope: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """Rotary embedding as ``transformer.py:160``: split halves, float32,
+    cast back.  x ``(B, L, H, D)``."""
+    c, s = rope
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+class Transformer(nn.Module):
+    """A dense decoder's weights on one device, and its serving functions.
+
+    ``weights`` (named and shaped as :func:`weight_shapes` says, as
+    ``convert.transformer_params_from_numpy`` builds them) are taken as
+    they are; without them every weight is drawn on ``device`` by a
+    ``torch.Generator`` seeded with ``seed``, with the reference's
+    initialisers: dense weights normal times ``1 / sqrt(d_in)``, the
+    embedding normal times 0.02, norm gains ones, biases zeros.  A full
+    model's weights are drawn on the card, never on the host.
+    """
+
+    def __init__(self, cfg: TransformerConfig, *, device="cuda", seed: int = 0,
+                 weights: Optional[Dict[str, torch.Tensor]] = None):
+        super().__init__()
+        if cfg.moe is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: mixture-of-experts layers are not ported yet "
+                "(ROADMAP queue 1 item 11)")
+        self.cfg = cfg
+        if weights is None:
+            weights = _draw_weights(cfg, resolve_device(device), seed)
+        if set(weights) != set(weight_shapes(cfg)):
+            raise ValueError(f"weights {sorted(weights)} are not those of "
+                             f"{cfg.name}: {sorted(weight_shapes(cfg))}")
+        for name, shape in weight_shapes(cfg).items():
+            w = weights[name]
+            if tuple(w.shape) != shape:
+                raise ValueError(f"{name} has shape {tuple(w.shape)}, "
+                                 f"{cfg.name} needs {shape}")
+            self.register_parameter(name, nn.Parameter(w, requires_grad=False))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    # ------------------------------------------------------------- serving
+
+    @torch.no_grad()
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens ``(B, L)`` -> logits ``(B, L, V)``.  The reference also
+        returns MoE metrics, zeros for a dense model; they are dropped."""
+        rope = self._rope_tables(0, tokens.shape[1])
+        x = self.embed[tokens]
+        for i in range(self.cfg.n_layers):
+            x = self._layer(i, x, rope)
+        return self._logits(x)
+
+    def init_kv_cache(self, batch: int, max_len: int) -> Dict[str, Any]:
+        """Zeros of the reference's layout, ``(n_layers, B, Hkv, max_len,
+        D)`` in ``cfg.dtype``, for ``"k"`` and ``"v"``, on the model's
+        device; ``"pos"`` 0."""
+        cfg = self.cfg
+        shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=cfg.dtype, device=self.device),
+                "v": torch.zeros(shape, dtype=cfg.dtype, device=self.device),
+                "pos": 0}
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, cache: Dict[str, Any]
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """Run the prompt ``(B, Lp)`` through the model, writing its k/v into
+        cache slots ``[0, Lp)`` in place.  Returns the last token's logits
+        ``(B, V)`` and the cache, its ``pos`` set to ``Lp``."""
+        l = tokens.shape[1]
+        rope = self._rope_tables(0, l)
+        x = self.embed[tokens]
+        for i in range(self.cfg.n_layers):
+            x = self._layer(i, x, rope, cache, 0)
+        cache["pos"] = l
+        return self._logits(x[:, -1:])[:, 0], cache
+
+    @torch.no_grad()
+    def decode_step(self, tokens: torch.Tensor, cache: Dict[str, Any]
+                    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """One incremental step: tokens ``(B,)`` at position ``cache["pos"]``
+        -> logits ``(B, V)``; the cache is written in place and its ``pos``
+        advanced by one."""
+        pos = cache["pos"]
+        rope = self._rope_tables(pos, 1)
+        x = self.embed[tokens][:, None, :]
+        for i in range(self.cfg.n_layers):
+            x = self._layer(i, x, rope, cache, pos)
+        cache["pos"] = pos + 1
+        return self._logits(x)[:, 0], cache
+
+    # ------------------------------------------------------------ internals
+
+    def _rope_tables(self, start: int, length: int):
+        positions = torch.arange(start, start + length, device=self.device)
+        return _rope_tables(positions, self.cfg.head_dim, self.cfg.rope_theta)
+
+    def _layer(self, i: int, x: torch.Tensor, rope: Tuple[torch.Tensor, torch.Tensor],
+               cache: Optional[Dict[str, Any]] = None, pos: int = 0) -> torch.Tensor:
+        """One block; x ``(B, L, d)`` at positions ``[pos, pos + L)``, whose
+        rotary tables are ``rope``.  With a cache, the new k/v go into slots
+        ``[pos, pos + L)`` and attention reads slots ``[0, pos + L)``."""
+        cfg = self.cfg
+        b, l, _ = x.shape
+        dh = cfg.head_dim
+        bq, bk, bv = ((self.bq[i], self.bk[i], self.bv[i]) if cfg.qkv_bias
+                      else (None, None, None))
+        h = rmsnorm(x, self.attn_norm[i])
+        q = dense(h, self.wq[i], bq).view(b, l, cfg.n_heads, dh)
+        k = dense(h, self.wk[i], bk).view(b, l, cfg.n_kv_heads, dh)
+        v = dense(h, self.wv[i], bv).view(b, l, cfg.n_kv_heads, dh)
+        q = _rope(q, rope).transpose(1, 2)
+        k = _rope(k, rope).transpose(1, 2)
+        v = v.transpose(1, 2)
+        if cache is not None:
+            end = pos + l
+            if end > cache["k"].shape[3]:
+                raise ValueError(f"cache of {cache['k'].shape[3]} slots cannot "
+                                 f"hold positions [{pos}, {end})")
+            ck, cv = cache["k"][i], cache["v"][i]
+            ck[:, :, pos:end] = k
+            cv[:, :, pos:end] = v
+            k, v = ck[:, :, :end], cv[:, :, :end]
+        o = attention(q, k, v, causal=True, window=cfg.sliding_window,
+                      backend=cfg.attn_backend)
+        x = x + dense(o.transpose(1, 2).reshape(b, l, cfg.n_heads * dh), self.wo[i])
+        h = rmsnorm(x, self.mlp_norm[i])
+        return x + swiglu(h, self.w_gate[i], self.w_up[i], self.w_down[i])
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        x = rmsnorm(x, self.final_norm)
+        if self.cfg.tie_embeddings:
+            return x @ self.embed.T
+        return dense(x, self.lm_head)
+
+
+def weight_shapes(cfg: TransformerConfig) -> Dict[str, Tuple[int, ...]]:
+    """The port's weight names and shapes; layer weights stacked on a
+    leading ``n_layers`` axis, dense weights ``(d_in, d_out)``."""
+    n, d, dh, f = cfg.n_layers, cfg.d_model, cfg.head_dim, cfg.d_ff
+    hq, hkv = cfg.n_heads * dh, cfg.n_kv_heads * dh
+    shapes = {
+        "embed": (cfg.vocab, d),
+        "attn_norm": (n, d), "wq": (n, d, hq), "wk": (n, d, hkv),
+        "wv": (n, d, hkv), "wo": (n, hq, d), "mlp_norm": (n, d),
+        "w_gate": (n, d, f), "w_up": (n, d, f), "w_down": (n, f, d),
+        "final_norm": (d,),
+    }
+    if cfg.qkv_bias:
+        shapes.update(bq=(n, hq), bk=(n, hkv), bv=(n, hkv))
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = (d, cfg.vocab)
+    return shapes
+
+
+def _draw_weights(cfg: TransformerConfig, device: torch.device,
+                  seed: int) -> Dict[str, torch.Tensor]:
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = {}
+    for name, shape in weight_shapes(cfg).items():
+        if name == "embed":
+            out[name] = embedding_init(gen, *shape, dtype=cfg.dtype)
+        elif name.endswith("norm"):  # gains
+            out[name] = torch.ones(shape, dtype=cfg.dtype, device=device)
+        elif name in ("bq", "bk", "bv"):
+            out[name] = torch.zeros(shape, dtype=cfg.dtype, device=device)
+        elif name == "lm_head":
+            out[name] = dense_init(gen, *shape, dtype=cfg.dtype)
+        else:  # stacked dense weights (n, d_in, d_out)
+            out[name] = dense_init(gen, shape[1], shape[2], shape[0],
+                                   dtype=cfg.dtype)
+    return out

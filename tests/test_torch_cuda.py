@@ -1,5 +1,6 @@
-"""The CUDA kernels (histogram, segment max, Count-Min) against their plain
-versions, on the card.
+"""The CUDA kernels (histogram, segment max, Count-Min, segment sum,
+attention) against their plain versions, on the card, and the transformer's
+serving path through the attention kernel.
 
 These tests need an NVIDIA card and ``nvcc``: they carry the ``cuda``
 marker and skip without a card.  Run them on a machine with one:
@@ -13,8 +14,10 @@ import itertools
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as fa_kernel
 from repro_torch.kernels import histogram as hist_kernel
 from repro_torch.kernels import ops
+from repro_torch.kernels import segment_matmul as segsum_kernel
 from repro_torch.kernels import segreduce as segmax_kernel
 from repro_torch.kernels import sketch as sketch_kernel
 
@@ -157,3 +160,162 @@ def test_new_kernels_reject_bad_inputs(dev):
         sketch_kernel.cms_update_cuda(torch.zeros((2, 3), dtype=torch.int32, device=dev),
                                       torch.zeros((3, 4), dtype=torch.int32, device=dev),
                                       torch.zeros(4, dtype=torch.int32, device=dev))
+
+
+# Attention: float32 to 2e-3 and bfloat16 to 3e-2, tests/test_kernels.py's
+# tolerances (bf16 outputs round at 2^-8; the bf16 kernel also rounds P).
+ATTN_TOL = {torch.float32: 2e-3, torch.bfloat16: 3e-2}
+# Each output row (one query of one head) is also held by its relative L2
+# error, chip_smoke.py's phase-6 limits: elementwise limits of 1 + |o| scale
+# lie above small outputs, whose size falls as 1 / sqrt(keys seen).
+ATTN_ROW_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
+
+
+def _assert_attention_close(got, want, dtype):
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    rows = ((got.float() - want.float()).norm(dim=-1)
+            / (want.float().norm(dim=-1) + 1e-6))
+    assert rows.max().item() <= ATTN_ROW_RTOL[dtype], rows.max().item()
+
+
+def _qkv(g, dev, dtype, b, hq, hkv, lq, lkv, d):
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device=dev).to(dtype)
+    return rnd(b, hq, lq, d), rnd(b, hkv, lkv, d), rnd(b, hkv, lkv, d)
+
+
+@pytest.mark.parametrize("b,hq,hkv,lq,lkv,d", [
+    (1, 1, 1, 128, 128, 64),     # MHA, one tile each way
+    (2, 8, 2, 256, 256, 64),     # GQA 4:1
+    (1, 4, 4, 96, 96, 128),      # not a multiple of the 64-row tiles
+    (2, 8, 1, 1, 512, 64),       # decode against a cache (MQA)
+    (1, 2, 2, 64, 320, 32),      # chunked prefill: lq < lkv
+    (1, 2, 1, 65, 63, 128),      # lq > lkv: leading rows see no key
+    (2, 4, 2, 200, 200, 128),
+])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_matches_plain(dev, b, hq, hkv, lq, lkv, d, causal, dtype):
+    g = torch.Generator(device=dev).manual_seed(lq * 31 + lkv + d)
+    q, k, v = _qkv(g, dev, dtype, b, hq, hkv, lq, lkv, d)
+    before = fa_kernel.LAUNCHES
+    got = ops.attention(q, k, v, causal=causal, backend="cuda")
+    assert fa_kernel.LAUNCHES == before + 1
+    want = ops.attention(q, k, v, causal=causal, backend="torch")
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    _assert_attention_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("window", [1, 64, 200, 4096])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_sliding_window(dev, window, dtype):
+    g = torch.Generator(device=dev).manual_seed(window)
+    q, k, v = _qkv(g, dev, dtype, 1, 4, 2, 300, 300, 64)
+    for causal in (True, False):
+        got = ops.attention(q, k, v, causal=causal, window=window, backend="cuda")
+        want = ops.attention(q, k, v, causal=causal, window=window, backend="torch")
+        _assert_attention_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_reads_a_strided_cache_view(dev, dtype):
+    """Decode and chunked prefill against the written part of a longer cache,
+    cut as a view: the kernel reads it in place."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    cache = torch.randn(2, 3, 8, 130, 128, generator=g, device=dev).to(dtype)
+    k, v = cache[0][:, :, :77], cache[1][:, :, :77]
+    assert not k.is_contiguous()
+    for lq in (1, 13):
+        q = torch.randn(3, 32, lq, 128, generator=g, device=dev).to(dtype)
+        got = ops.attention(q, k, v, backend="cuda")
+        want = ops.attention(q, k, v, backend="torch")
+        _assert_attention_close(got, want, dtype)
+
+
+def test_attention_kernel_rejects_bad_inputs(dev):
+    q = torch.randn(1, 4, 8, 64, device=dev)
+    k = torch.randn(1, 2, 8, 64, device=dev)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        fa_kernel.flash_attention_cuda(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError, match="head size"):
+        fa_kernel.flash_attention_cuda(q[..., :48], k[..., :48], k[..., :48])
+    k3 = torch.randn(1, 3, 8, 64, device=dev)
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        fa_kernel.flash_attention_cuda(q, k3, k3)
+    with pytest.raises(ValueError, match="contiguous last axis"):
+        fa_kernel.flash_attention_cuda(q, k.transpose(2, 3).contiguous()
+                                       .transpose(2, 3), k)
+    with pytest.raises(ValueError, match="window"):
+        fa_kernel.flash_attention_cuda(q, k, k, window=0)
+
+
+@pytest.mark.parametrize("n,d,segs", [(8192, 64, 4096), (10752, 1433, 2816),
+                                      (5000, 7, 3), (1, 300, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_segment_sum_kernel_matches_plain(dev, n, d, segs, dtype):
+    """Integer-valued rows: float sums exact in any order, so bit-equal."""
+    g = torch.Generator(device=dev).manual_seed(n + d)
+    ids = _rand(g, -5, segs + 5, n, dev)
+    x = _rand(g, -4, 5, n * d, dev).reshape(n, d).to(dtype)
+    before = segsum_kernel.LAUNCHES
+    got = ops.segment_reduce(x, ids, segs, backend="cuda")
+    assert segsum_kernel.LAUNCHES == before + 1
+    want = ops.segment_reduce(x, ids, segs, backend="torch")
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+
+
+def test_segment_sum_kernel_random_floats_and_edges(dev):
+    g = torch.Generator(device=dev).manual_seed(3)
+    ids = _rand(g, 0, 100, 20000, dev)
+    x = torch.randn(20000, 33, generator=g, device=dev)
+    got = ops.segment_reduce(x, ids, 100, backend="cuda")
+    want = ops.segment_reduce(x, ids, 100, backend="torch")
+    # sums of about 200 terms of size 1, in another order
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    empty = torch.zeros(0, 4, device=dev)
+    none = torch.zeros(0, dtype=torch.int32, device=dev)
+    assert torch.equal(ops.segment_reduce(empty, none, 3, backend="cuda"),
+                       torch.zeros(3, 4, device=dev))
+    with pytest.raises(ValueError, match="int32"):
+        segsum_kernel.segment_matmul_cuda(x, ids.long(), 100)
+    with pytest.raises(ValueError, match="float32, bfloat16"):
+        segsum_kernel.segment_matmul_cuda(x.double(), ids, 100)
+
+
+@pytest.mark.parametrize("config", ["granite_8b", "minicpm_2b", "qwen2_72b"])
+def test_transformer_serving_kernel_matches_plain(dev, config):
+    """The smoke configs, bfloat16, with heads of 64 (the kernel's smallest
+    head size is 32; the smoke configs' is 8) on the card: prefill of 40
+    tokens into a 64-slot cache and 8 decode steps through the attention
+    kernel, against the same weights through the plain attention; one launch
+    per layer per call.  Logits within 3e-2 relative L2 (bf16 rounding of P
+    in the kernel, through two layers)."""
+    import dataclasses
+    import importlib
+
+    from repro_torch.models.transformer import Transformer
+
+    cfg = dataclasses.replace(
+        importlib.import_module(f"repro_torch.configs.{config}").smoke_config(),
+        dtype=torch.bfloat16, d_head=64)
+    runs = {}
+    for backend in ("cuda", "torch"):
+        model = Transformer(dataclasses.replace(cfg, attn_backend=backend),
+                            device="cuda", seed=0)
+        g = torch.Generator(device=dev).manual_seed(1)
+        tokens = torch.randint(0, cfg.vocab, (2, 48), generator=g, device=dev)
+        before = fa_kernel.LAUNCHES
+        cache = model.init_kv_cache(2, 64)
+        logits, cache = model.prefill(tokens[:, :40], cache)
+        out = [logits]
+        for i in range(40, 48):
+            logits, cache = model.decode_step(tokens[:, i], cache)
+            out.append(logits)
+        runs[backend] = (torch.stack(out).float(), fa_kernel.LAUNCHES - before)
+    assert runs["cuda"][1] == cfg.n_layers * 9 and runs["torch"][1] == 0
+    got, want = runs["cuda"][0], runs["torch"][0]
+    assert bool(torch.isfinite(got).all())
+    rel = ((got - want).norm(dim=-1) / want.norm(dim=-1)).max().item()
+    assert rel < 3e-2, rel

@@ -31,7 +31,9 @@ def test_scan_covers_the_port():
     assert len(FILES) > 20
     names = {p.name for p in FILES}
     assert {"chip_smoke.py", "pipeline.py", "histogram.py", "sparse.py",
-            "algorithms.py", "sketch.py", "segreduce.py"} <= names
+            "algorithms.py", "sketch.py", "segreduce.py", "flash_attention.py",
+            "segment_matmul.py", "transformer.py", "layers.py",
+            "granite_8b.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -18,12 +18,21 @@ them), 20 back-to-back calls of one kernel wrapper or of the one PyTorch
 call that computes the same function: ``segmax_vxm`` (2^20 float32 values
 into 2^21 segments with ``valid_mask``), ``hll_fold`` (2^15 rows into 4,096
 registers with ``init``) and ``cms_fold`` (int32 (4, 4096) cells, 2^15
-proposals), each with a ``_library`` twin (``scatter_reduce_``, ``amax``).
-Their device events split each wrapper's device time from its host work.
+proposals), each with a ``_library`` twin (``scatter_reduce_``, ``amax``),
+and ``segment_reduce`` (full_graph_sm's 10,752 x 1,433 float32 messages
+into 2,816 segments) with its twin (``index_add_``).  Their device events
+split each wrapper's device time from its host work.
+
+LM serving, granite-8b at full width with ``--layers`` layers (default all
+36), bf16, weights drawn on the card, four requests: ``lm_prefill`` (2,048
+prompt tokens each into a 2,080-slot cache) and ``lm_decode`` (8 decode
+steps from position 2,048).  Their records add the device time of the
+attention kernel, of the matrix products and of the rest.
 
     python3 tools/profile_torch_challenge.py --scale 24
     python3 tools/profile_torch_challenge.py --scale 20 --phases bfs components pagerank triangles
     python3 tools/profile_torch_challenge.py --phases hll_fold hll_fold_library
+    python3 tools/profile_torch_challenge.py --phases lm_prefill lm_decode --layers 36
 """
 from __future__ import annotations
 
@@ -80,6 +89,10 @@ def profile_phase(name, fn, reps, top):
                            cnt + 1)
     busy_ms = _busy_us([(e.time_range.start, e.time_range.end) for e in dev]) / 1e3
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    families = {}
+    for k, (ms, _) in by_name.items():
+        fam = _family(k)
+        families[fam] = families.get(fam, 0.0) + ms
     return {
         "phase": name,
         "wall_ms_median": statistics.median(walls),
@@ -90,22 +103,39 @@ def profile_phase(name, fn, reps, top):
         "idle_share_of_traced_wall": 1 - busy_ms / traced_ms if dev else "not measured",
         "top_device_ms": [{"name": k[:90], "ms": v[0], "count": v[1]}
                           for k, v in ranked],
+        "device_ms_by_family": families,
     }
+
+
+def _family(kernel_name: str) -> str:
+    """The port's own kernels by name; cuBLAS's matrix products (``gemm``,
+    ``nvjet``, ``cutlass``, ``xmma``); everything else."""
+    name = kernel_name.lower()
+    for fam, keys in (("attention kernel", ("fa_fwd",)),
+                      ("segment-sum kernel", ("segment_sum_rows",)),
+                      ("matmul", ("gemm", "nvjet", "cutlass", "xmma"))):
+        if any(key in name for key in keys):
+            return fam
+    return "other"
 
 
 TABLE_PHASES = ("build_device", "anonymize", "analyze", "analyze_fused", "bfs",
                 "components", "pagerank", "triangles", "sketch_batch")
-KERNEL_PHASES = tuple(f"{k}{s}" for k in ("segmax_vxm", "hll_fold", "cms_fold")
+KERNEL_PHASES = tuple(f"{k}{s}" for k in ("segmax_vxm", "hll_fold", "cms_fold",
+                                           "segment_reduce")
                       for s in ("", "_library"))
-PHASES = TABLE_PHASES + KERNEL_PHASES
+LM_PHASES = ("lm_prefill", "lm_decode")
+PHASES = TABLE_PHASES + KERNEL_PHASES + LM_PHASES
 CALLS = 20  # back-to-back calls per kernel phase
+LM_BATCH, LM_PROMPT, LM_SLOTS, LM_STEPS = 4, 2048, 2080, 8
 
 
 def kernel_phases(dev):
     """The kernel phases: each runs CALLS calls of a wrapper (``backend=
     "cuda"``) or of its library twin on inputs pre-masked for it."""
     import torch
-    from repro_torch.kernels.ops import cms_update, hll_update, segmented_reduce
+    from repro_torch.kernels.ops import (cms_update, hll_update, segment_reduce,
+                                         segmented_reduce)
 
     g = torch.Generator(device=dev).manual_seed(0)
     rand = lambda lo, hi, *shape: torch.randint(lo, hi, shape, generator=g,
@@ -129,6 +159,13 @@ def kernel_phases(dev):
     keep = cols >= 0
     flat = (torch.arange(depth, device=dev)[:, None] * m + cols)[keep].long()
     flat_props, flat_counts = props.expand(depth, rows)[keep], counts.reshape(-1)
+    # full_graph_sm: 10,752 edges (196 padding, at the capacity) x 1,433
+    # features into 2,816 node slots
+    edges, feats, nodes = 10752, 1433, 2816
+    recv = rand(0, 2708, edges)
+    recv[10556:] = nodes
+    msgs = torch.randn(edges, feats, generator=g, device=dev)
+    recv_spill = recv.long()
     one = {
         "segmax_vxm": lambda: segmented_reduce(
             vals, seg, segs, op="max", valid_mask=mask, retire=ninf,
@@ -141,6 +178,9 @@ def kernel_phases(dev):
         "cms_fold": lambda: cms_update(counts, cols, props, backend="cuda"),
         "cms_fold_library": lambda: flat_counts.clone().scatter_reduce_(
             0, flat, flat_props, "amax"),
+        "segment_reduce": lambda: segment_reduce(msgs, recv, nodes, backend="cuda"),
+        "segment_reduce_library": lambda: torch.zeros(
+            nodes + 1, feats, device=dev).index_add_(0, recv_spill, msgs),
     }
 
     def repeat(fn):
@@ -198,12 +238,48 @@ def table_phases(args, dev):
     return phases
 
 
+def lm_phases(args, dev):
+    """granite-8b serving at ``--layers`` layers: a prefill of four 2,048-
+    token prompts, and 8 decode steps from position 2,048 (the cache's
+    position set back before each call)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import granite_8b
+    from repro_torch.models.transformer import Transformer
+
+    cfg = dataclasses.replace(granite_8b.full_config(), n_layers=args.layers,
+                              attn_backend="cuda")
+    model = Transformer(cfg, device=dev, seed=0)
+    g = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=g,
+                           device=dev)
+    cache = model.init_kv_cache(LM_BATCH, LM_SLOTS)
+    logits, _ = model.prefill(tokens, cache)
+    first = logits.argmax(-1)
+
+    def decode():
+        cache["pos"] = LM_PROMPT
+        nxt = first
+        for _ in range(LM_STEPS):
+            logits, _ = model.decode_step(nxt, cache)
+            nxt = logits.argmax(-1)
+
+    print(json.dumps({"model": cfg.name, "layers": cfg.n_layers,
+                      "batch": LM_BATCH, "prompt": LM_PROMPT,
+                      "decode_steps_per_call": LM_STEPS}))
+    return {"lm_prefill": lambda: model.prefill(tokens, cache),
+            "lm_decode": decode}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=24)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--phases", nargs="+", choices=PHASES, default=PHASES[:4])
+    ap.add_argument("--layers", type=int, default=36,
+                    help="granite-8b's depth in the lm_ phases")
     args = ap.parse_args(argv)
 
     import torch
@@ -217,6 +293,8 @@ def main(argv=None) -> int:
     phases = kernel_phases(dev) if set(KERNEL_PHASES) & set(args.phases) else {}
     if set(TABLE_PHASES) & set(args.phases):
         phases.update(table_phases(args, dev))
+    if set(LM_PHASES) & set(args.phases):
+        phases.update(lm_phases(args, dev))
     for name in args.phases:
         print(json.dumps(profile_phase(name, phases[name], args.reps, args.top)),
               flush=True)
