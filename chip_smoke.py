@@ -48,14 +48,21 @@ Phases (any failure exits non-zero):
    ``index_add_``) and the bound (operations over the bf16 tensor-core peak
    or bytes over the memory rate, the larger):
    * attention, each output row within 2^-7 relative L2 of the plain
-     version's in bfloat16: (p) granite prefill, B 4, 32/8 heads, L 2,048,
-     D 128, causal; (d) granite decode, one query against cuts of a
-     2,080-slot cache (a strided view); (m) minicpm prefill, 36 heads MHA,
-     D 64; (w) a 4,096 sliding window over L 8,192; beside (p), (d) and
-     (w), two planted faults that the check must reject (the newest key
-     dropped, the output scaled by 0.98); then edge cases in float32 (to
-     1e-4) and bfloat16 (lq < lkv, lengths off the 64-row tiles and on
-     them, non-causal, lq > lkv);
+     version's in bfloat16, each case naming the kernel path the dispatch
+     rule gave it (prefill, decode or f32): (p) granite prefill, B 4, 32/8
+     heads, L 2,048, D 128, causal; (d) granite decode, one query against
+     cuts of a 2,080-slot cache (a strided view); (c4) and (c5) chunks of 4
+     and 5 queries against that cache, the two sides of the dispatch
+     boundary (16 and 20 packed rows); (d32k) one query against 32,767 of
+     32,768 slots, granite's decode_32k cache length; (m) minicpm prefill,
+     36 heads MHA, D 64; (w) a 4,096 sliding window over L 8,192; beside
+     (p), (d), (d32k) and (w), two planted faults that the check must reject
+     (the newest key dropped, the output scaled by 0.98); then edge cases
+     in float32 (to 1e-4) and bfloat16 (lq < lkv, lengths off the tiles and
+     on them, non-causal, decode at lkv 1, below one chunk and under a
+     narrow window, 16 rows of a group of 8, lq > lkv).  Each shape is timed
+     also on the device alone (the host's work left out), and at (d), (c4)
+     and (d32k) with the prefill path forced beside the decode path;
    * segment sum at the GNN regimes of ``configs/common_gnn.py``: molecule
      (8,192 edges x 64 features into 4,096 segments) and full_graph_sm
      (10,752 x 1,433 into 2,816, 196 padding edges at the capacity):
@@ -186,7 +193,9 @@ NO_LM_OR_GNN = {"flash_attention": 0, "segment_matmul": 0}
 
 
 def time_ms(fn) -> float:
-    """Mean device time of one call, by CUDA events over REPS calls."""
+    """Mean time of one call, by CUDA events around REPS calls in a row: the
+    device's time, or the host's where the host queues calls more slowly
+    than the device runs them (``device_time_ms`` leaves the host out)."""
     import torch
 
     fn()
@@ -199,6 +208,31 @@ def time_ms(fn) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / REPS
+
+
+def device_time_ms(fn) -> float:
+    """Mean device time of one call, by CUDA events over REPS calls queued
+    behind a sleep kernel: the device starts them only after the host has
+    queued them all, so the host's work per call (the wrapper's checks and
+    launches) is left out.  Checked: the host must finish queueing before
+    the device reaches the start event, else the sleep is lengthened."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for cycles in (10 ** 7, 10 ** 8, 10 ** 9):
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(REPS):
+            fn()
+        end.record()
+        ahead = not start.query()
+        torch.cuda.synchronize()
+        if ahead:
+            return start.elapsed_time(end) / REPS
+    raise AssertionError("the host did not get ahead of the device")
 
 
 def same(name, got, want):
@@ -422,12 +456,13 @@ def check_segment_max(dev):
     kern = lambda: hll_update(regs, reg_ids, rhos, backend="cuda")
     plain = lambda: hll_update(regs, reg_ids, rhos, backend="torch")
     same("(h) HLL fold: 2^15 rows -> 4,096 registers with init", kern(), plain())
-    spill_h = torch.where(reg_ids >= 0, reg_ids, m).long()
-    regs_spill = torch.cat([regs, regs.new_full((1,), float("-inf"))])
-    rhos_f = rhos.float()
+    # the library call computes what the wrapper computes: the spill index,
+    # the cast and the copy of the registers are inside the timed call
     timed("h: rho int32 (2^15,), reg ids int32, 4,096 registers, init",
           kern, plain,
-          lambda: regs_spill.clone().scatter_reduce_(0, spill_h, rhos_f, "amax"),
+          lambda: torch.cat([regs, regs.new_full((1,), float("-inf"))])
+          .scatter_reduce_(0, torch.where(reg_ids >= 0, reg_ids, m).long(),
+                           rhos.float(), "amax")[:m],
           SKETCH_BATCH, m, 4 * m)
 
     # (i) the epilogues on both kernel paths, no rows, out-of-range ids
@@ -476,16 +511,23 @@ def check_cms(dev):
     plain = lambda: cms_update(counts, cols, props, backend="torch")
     same("(j) int32 (4, 4096) cells, 2^15 proposals, counts past 2^24",
          kern(), plain())
-    keep = cols >= 0
-    flat = (torch.arange(depth, device=dev)[:, None] * width + cols)[keep].long()
-    flat_props = props.expand(depth, n)[keep]
-    flat_counts = counts.reshape(-1)
+    # the library call computes what the wrapper computes, inside the timed
+    # call: flat cell ids (masked proposals to a spill cell, no host sync),
+    # the proposals broadcast over the rows, a copy of the cells
+    rows = torch.arange(depth, device=dev)[:, None] * width
+
+    def library():
+        flat = torch.where(cols >= 0, rows + cols, depth * width).long().reshape(-1)
+        cells = torch.cat([counts.reshape(-1), counts.new_zeros(1)])
+        return cells.scatter_reduce_(0, flat, props.expand(depth, n).reshape(-1),
+                                     "amax")[:-1].view(depth, width)
+
+    same("(j) the library yardstick computes the same cells", library(), plain())
     shapes.append({
         "case": "j: cells int32 (4, 4096), col ids int32 (4, 2^15), "
                 "proposals int32 (2^15,)",
         "ms": time_ms(kern), "plain_ms": time_ms(plain),
-        "library_ms": time_ms(lambda: flat_counts.clone().scatter_reduce_(
-            0, flat, flat_props, "amax")),
+        "library_ms": time_ms(library),
         "bound_ms": (4 * depth * n + 4 * n + 8 * depth * width)
         / HBM_BYTES_PER_S * 1e3,
     })
@@ -750,6 +792,7 @@ def check_attention(dev):
     Returns (max_abs_err, timed shape records)."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import attention_path, flash_attention_cuda
     from repro_torch.kernels.ops import attention
 
     g = torch.Generator(device=dev).manual_seed(3)
@@ -766,8 +809,8 @@ def check_attention(dev):
         rows = _row_error(got, want)
         err = (got.float() - want.float()).abs().max().item()
         tol = ATTN_ROW_RTOL[str(q.dtype).removeprefix("torch.")]
-        log(f"  {name}: max row relative L2 {rows.max().item():.4g} (limit "
-            f"{tol:.4g}), max |diff| {err:.3g}")
+        log(f"  {name} [{attention_path(q, k)}]: max row relative L2 "
+            f"{rows.max().item():.4g} (limit {tol:.4g}), max |diff| {err:.3g}")
         if got.dtype != want.dtype or not bool(torch.isfinite(got).all()) or not (
                 rows.max().item() <= tol):
             failed.append(name)
@@ -795,7 +838,9 @@ def check_attention(dev):
             if not rows.max().item() > tol:
                 failed.append(f"control {name}, {fault}: not rejected")
 
-    def timed(case, q, k, v, causal, window=None):
+    def timed(case, q, k, v, causal, window=None, forced=None):
+        """Time the kernel on the path the rule picks (and, with ``forced``,
+        on that other path too), the plain version and the library call."""
         b, hq, lq, d = q.shape
         if window is None:
             library = lambda: F.scaled_dot_product_attention(
@@ -807,14 +852,21 @@ def check_attention(dev):
             library = lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=band, enable_gqa=True)
         bound, by = _attention_bound(q, k, v, causal, window)
-        shapes.append({
-            "case": case,
-            "ms": time_ms(lambda: attention(q, k, v, causal=causal, window=window,
-                                            backend="cuda")),
+        kern = lambda: attention(q, k, v, causal=causal, window=window, backend="cuda")
+        rec = {
+            "case": case, "path": attention_path(q, k), "ms": time_ms(kern),
             "plain_ms": time_ms(lambda: attention(q, k, v, causal=causal,
                                                   window=window, backend="torch")),
             "library_ms": time_ms(library), "bound_ms": bound, "bound_by": by,
-        })
+            "device_ms": device_time_ms(kern),
+            "library_device_ms": device_time_ms(library),
+        }
+        if forced is not None:
+            other = lambda: flash_attention_cuda(q, k, v, causal=causal,
+                                                 window=window, path=forced)
+            rec[f"{forced}_path_ms"] = time_ms(other)
+            rec[f"{forced}_path_device_ms"] = device_time_ms(other)
+        shapes.append(rec)
 
     # (p) granite prefill: 4 x 2,048 tokens, 32 query heads on 8 kv heads
     q, k, v = rnd(bf16, 4, 32, 2048, 128), rnd(bf16, 4, 8, 2048, 128), rnd(bf16, 4, 8, 2048, 128)
@@ -834,7 +886,31 @@ def check_attention(dev):
         control(f"(d) lkv {n}", q1, cache[0][:, :, :n], cache[1][:, :, :n], True,
                 None, want)
     timed("d: bf16 q (4, 32, 1, 128), k/v views (4, 8, 2079, 128) of a 2,080-slot "
-          "cache", q1, cache[0][:, :, :2079], cache[1][:, :, :2079], True)
+          "cache", q1, cache[0][:, :, :2079], cache[1][:, :, :2079], True,
+          forced="prefill")
+
+    # the dispatch boundary: a chunk of 4 queries (4 x 4 = 16 packed rows,
+    # decode) and of 5 (20 rows, prefill) against the same cache cut, each
+    # row within the limit; at 4 the prefill path is timed beside decode
+    for lq in (4, 5):
+        qc = rnd(bf16, 4, lq, 32, 128).transpose(1, 2)
+        compare(f"(c{lq}) chunk of {lq} queries, lkv 2,079 of 2,080 slots", qc,
+                cache[0][:, :, :2079], cache[1][:, :, :2079], True)
+        timed(f"c{lq}: bf16 q (4, 32, {lq}, 128), k/v views (4, 8, 2079, 128) of a "
+              "2,080-slot cache", qc, cache[0][:, :, :2079], cache[1][:, :, :2079],
+              True, forced="prefill" if lq == 4 else None)
+    del cache
+
+    # (d32k) granite's decode_32k cache length: one query per request against
+    # 32,767 of 32,768 slots (537 MB of K and V)
+    cache = rnd(bf16, 2, 4, 8, 32768, 128)
+    k32, v32 = cache[0][:, :, :32767], cache[1][:, :, :32767]
+    want = compare("(d32k) granite decode, lq 1, lkv 32,767 of 32,768 slots",
+                   q1, k32, v32, True)
+    control("(d32k)", q1, k32, v32, True, None, want)
+    timed("d32k: bf16 q (4, 32, 1, 128), k/v views (4, 8, 32767, 128) of a "
+          "32,768-slot cache", q1, k32, v32, True, forced="prefill")
+    del cache, k32, v32, want
 
     # (m) minicpm prefill: 36 heads MHA, head size 64
     q, k, v = (rnd(bf16, 4, 36, 2048, 64) for _ in range(3))
@@ -853,9 +929,11 @@ def check_attention(dev):
     del q, k, v
     torch.cuda.empty_cache()
 
-    # edge cases, float32 (the CUDA-core kernel) and bfloat16 (the mma one):
-    # chunked prefill lq < lkv, lengths off and on the 64-row tiles, a
-    # non-causal pass, decode, lq > lkv (leading rows see no key: 0)
+    # edge cases, float32 (the CUDA-core kernel) and bfloat16 (the prefill
+    # and decode paths): chunked prefill lq < lkv, lengths off and on the
+    # tiles, a non-causal pass, decode (lkv 1, below one chunk, a window far
+    # narrower than the cache, 16 packed rows), lq > lkv (leading rows see
+    # no key: 0)
     edges = [
         ("lq 100 < lkv 300", (2, 8, 2, 100, 300, 128), True, None),
         ("L 200 (off the tiles)", (1, 4, 4, 200, 200, 64), True, None),
@@ -865,6 +943,11 @@ def check_attention(dev):
         ("decode, lkv 77", (3, 8, 2, 1, 77, 128), True, None),
         ("lq 70 > lkv 40", (1, 2, 2, 70, 40, 64), True, None),
         ("D 32, window 1", (1, 2, 2, 96, 96, 32), True, 1),
+        ("decode, lkv 1", (2, 8, 2, 1, 1, 128), True, None),
+        ("decode, lkv 40", (2, 8, 1, 1, 40, 64), True, None),
+        ("decode, lq 3, window 5 over lkv 2079", (1, 4, 1, 3, 2079, 128), True, 5),
+        ("16 rows of group 8, D 32", (1, 16, 2, 2, 500, 32), True, None),
+        ("decode tile, lq 6 > lkv 4", (1, 2, 2, 6, 4, 64), True, None),
     ]
     for dtype in (f32, bf16):
         for name, (b, hq, hkv, lq, lkv, d), causal, window in edges:

@@ -12,7 +12,7 @@ from typing import Optional
 import torch
 
 __all__ = ["ref_histogram", "ref_segment_max", "ref_cms_update", "ref_hll_update",
-           "ref_segment_matmul", "ref_attention"]
+           "ref_segment_matmul", "ref_attention", "ref_attention_split"]
 
 
 def ref_histogram(
@@ -183,3 +183,58 @@ def ref_attention(
     del logits  # (B, Hq, Lq, Lkv) float32: 8.6 GB at Lq = Lkv = 8192, Hq = 32
     probs.masked_fill_(~mask.any(dim=-1, keepdim=True), 0.0)
     return (probs @ vv).to(q.dtype)
+
+
+def ref_attention_split(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    begin: int = 0,
+    chunk_keys: int = 64,
+) -> torch.Tensor:
+    """:func:`ref_attention` by the arithmetic of the CUDA kernel's decode
+    path, in float32: the GQA group's query heads packed into rows of one kv
+    head, a partial (row max ``m``, sum ``l``, unnormalised accumulator) per
+    kv chunk ``[begin + c * chunk_keys, + chunk_keys)`` up to Lkv, then the
+    chunks rescaled by ``exp(m_c - max m)`` and summed.  A chunk that sees no
+    key of a row has ``m = -inf`` and ``l = 0`` and adds nothing; a row that
+    sees no key at all is 0.  Keys before ``begin`` are left out, as the
+    kernel leaves out keys below the band.  For tests; no path runs it.
+    """
+    b, hq, lq, d = q.shape
+    hkv, lkv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = (d ** -0.5) if scale is None else scale
+    rows = q.to(torch.float32).reshape(b, hkv, group * lq, d)  # row gi * lq + qi
+    q_pos = torch.arange(lq, device=q.device).repeat(group)[:, None] + (lkv - lq)
+    neg_inf = torch.tensor(float("-inf"), device=q.device)
+    parts = []
+    for c0 in range(begin, max(lkv, begin + 1), chunk_keys):
+        c1 = min(lkv, c0 + chunk_keys)
+        kc = k[:, :, c0:c1].to(torch.float32)
+        s = torch.einsum("bhrd,bhkd->bhrk", rows, kc) * scale
+        k_pos = torch.arange(c0, c1, device=q.device)[None, :]
+        mask = torch.ones(group * lq, c1 - c0, dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= k_pos <= q_pos
+        if window is not None:
+            mask &= k_pos > q_pos - window
+        s = s.masked_fill(~mask, float("-inf"))
+        m = s.amax(dim=-1, keepdim=True) if c1 > c0 else neg_inf.expand(
+            b, hkv, group * lq, 1)
+        p = torch.exp(s - torch.where(m == neg_inf, 0.0, m))  # the -inf guard
+        parts.append((m, p.sum(dim=-1, keepdim=True),
+                      p @ v[:, :, c0:c1].to(torch.float32)))
+    m_all = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    total = torch.zeros_like(m_all)
+    acc = torch.zeros_like(rows)
+    for m, l, a in parts:
+        w = torch.where(m == neg_inf, 0.0, torch.exp(m - m_all))
+        total = total + l * w
+        acc = acc + a * w
+    out = torch.where(total > 0, acc / torch.where(total > 0, total, 1.0), 0.0)
+    return out.reshape(b, hq, lq, d).to(q.dtype)

@@ -9,7 +9,10 @@ multiple of the block, decode against a cache, lq < lkv, windows
 Tolerances are ``test_kernels.py``'s: 2e-3 in float32, 3e-2 in bfloat16
 (bf16 outputs round at 2^-8 relative).  The CUDA kernel itself is held
 against the plain version on the card (``tests/test_torch_cuda.py``,
-``chip_smoke.py``).
+``chip_smoke.py``).  Here also: ``ref_attention_split``, the plain mirror of
+the kernel's split-kv decode arithmetic, against ``ref_attention`` and the
+reference at the chunk edge cases, and the kernel's dispatch rule and kv
+split, which are plain Python.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +24,7 @@ from repro.kernels.ref import ref_attention as jax_ref_attention
 from repro_torch.kernels import flash_attention as fa_kernel
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.ref import ref_attention, ref_attention_split
 
 F32, BF16 = 2e-3, 3e-2
 
@@ -120,3 +124,81 @@ def test_dispatch_contract():
         ops.attention(q, k, v, backend="pallas")
     with pytest.raises(ValueError, match="CUDA tensors"):
         flash_attention_cuda(q, k, v)
+
+
+# The split-kv mirror against ref_attention, both float32: the same sums in
+# another grouping (per chunk, then rescaled), so within 1e-5 of outputs of
+# size about 1 (float32 rounding of sums of a few hundred terms).
+SPLIT_TOL = 1e-5
+
+
+@pytest.mark.parametrize("b,hq,hkv,lq,lkv,d,window,chunk,begin", [
+    (2, 8, 2, 1, 300, 64, None, 64, 0),      # lkv not a multiple of the chunk
+    (1, 8, 2, 1, 1, 128, None, 64, 0),       # lkv 1
+    (2, 4, 1, 1, 40, 32, None, 64, 0),       # lkv below one chunk
+    (1, 8, 8, 16, 700, 64, None, 64, 0),     # group 1, 16 rows
+    (1, 16, 2, 2, 500, 32, None, 128, 0),    # group 8, lq 2
+    (1, 1, 1, 16, 1000, 64, 40, 16, 0),      # window: whole chunks no row sees
+    (1, 1, 1, 16, 1000, 64, 40, 64, 896),    # the kernel's cut of that band
+    (1, 4, 1, 3, 2079, 128, 5, 64, 0),       # decode window far narrower than lkv
+    (1, 2, 2, 6, 4, 32, None, 64, 0),        # lq > lkv: leading rows see no key
+    (1, 8, 2, 1, 0, 64, None, 64, 0),        # no key at all
+])
+def test_split_mirror_matches_reference(b, hq, hkv, lq, lkv, d, window, chunk, begin):
+    q, k, v = (torch.from_numpy(x) for x in
+               _qkv(lq + 3 * lkv + d, b, hq, hkv, lq, lkv, d))
+    want = ref_attention(q, k, v, window=window)
+    got = ref_attention_split(q, k, v, window=window, chunk_keys=chunk, begin=begin)
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=SPLIT_TOL, atol=SPLIT_TOL)
+    if lkv >= lq:  # every row sees a key; the reference gives NaN for one that does not
+        jax_want = jax_ref_attention(*(jnp.asarray(x.numpy()) for x in (q, k, v)),
+                                     window=window)
+        np.testing.assert_allclose(got.numpy(), np.asarray(jax_want), rtol=F32, atol=F32)
+
+
+def test_split_mirror_non_causal_and_bf16():
+    q, k, v = (torch.from_numpy(x) for x in _qkv(11, 1, 8, 2, 2, 333, 64))
+    np.testing.assert_allclose(
+        ref_attention_split(q, k, v, causal=False, chunk_keys=64).numpy(),
+        ref_attention(q, k, v, causal=False).numpy(), rtol=SPLIT_TOL, atol=SPLIT_TOL)
+    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+    got = ref_attention_split(qb, kb, vb, chunk_keys=64)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               ref_attention(qb, kb, vb).float().numpy(),
+                               rtol=BF16, atol=BF16)
+
+
+@pytest.mark.parametrize("hq,hkv,lq,path", [
+    (32, 8, 1, "decode"), (32, 8, 4, "decode"), (32, 8, 5, "prefill"),
+    (16, 2, 2, "decode"), (16, 2, 3, "prefill"),
+    (8, 8, 16, "decode"), (8, 8, 17, "prefill"),
+    (64, 2, 1, "prefill"),  # a group of 32 heads overflows the 16-row tile
+])
+def test_attention_path_rule(hq, hkv, lq, path):
+    """The dispatch rule on both sides of the boundary: bf16 calls whose
+    group x lq rows fit the 16-row decode tile take the decode path;
+    float32 calls always the float32 kernel."""
+    k = torch.zeros(1, hkv, 9, 64)
+    q = torch.zeros(1, hq, lq, 64, dtype=torch.bfloat16)
+    assert fa_kernel.attention_path(q, k.bfloat16()) == path
+    assert fa_kernel.attention_path(q.float(), k) == "f32"
+
+
+@pytest.mark.parametrize("b,hkv,lq,lkv,window", [
+    (4, 8, 1, 2079, None), (4, 8, 1, 32767, None), (1, 1, 1, 10000, None),
+    (1, 8, 4, 1, None), (2, 8, 1, 0, None), (1, 1, 16, 1000, 40),
+    (64, 8, 1, 4000, None), (1, 8, 2, 3000, 64),
+])
+def test_decode_split_covers_the_band(b, hkv, lq, lkv, window):
+    """The chunks tile the keys any packed row may see, in whole 64-key
+    tiles, in about two blocks per SM of a 132-SM card (one chunk at least,
+    one tile per chunk at least), none of them empty of keys below lkv."""
+    sms = 132
+    begin, chunk, n = fa_kernel.decode_split(b, hkv, lq, lkv, window, sms)
+    assert begin % 64 == 0 and chunk % 64 == 0 and chunk >= 64 and n >= 1
+    first_seen = max(0, lkv - lq - window + 1) if window else 0
+    assert begin <= first_seen
+    assert begin + (n - 1) * chunk < max(lkv, 1) <= begin + n * chunk
+    assert n == 1 or b * hkv * n <= 2 * sms

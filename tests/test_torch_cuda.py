@@ -184,6 +184,8 @@ def _qkv(g, dev, dtype, b, hq, hkv, lq, lkv, d):
     return rnd(b, hq, lq, d), rnd(b, hkv, lkv, d), rnd(b, hkv, lkv, d)
 
 
+# bf16 calls whose group x lq rows fit the 16-row decode tile take the
+# split-kv decode path, the rest the wgmma prefill path (attention_path)
 @pytest.mark.parametrize("b,hq,hkv,lq,lkv,d", [
     (1, 1, 1, 128, 128, 64),     # MHA, one tile each way
     (2, 8, 2, 256, 256, 64),     # GQA 4:1
@@ -192,6 +194,17 @@ def _qkv(g, dev, dtype, b, hq, hkv, lq, lkv, d):
     (1, 2, 2, 64, 320, 32),      # chunked prefill: lq < lkv
     (1, 2, 1, 65, 63, 128),      # lq > lkv: leading rows see no key
     (2, 4, 2, 200, 200, 128),
+    (1, 8, 2, 1, 1, 128),        # decode, lkv 1
+    (2, 8, 2, 1, 40, 64),        # decode, lkv below one 64-key chunk
+    (2, 32, 8, 1, 2079, 128),    # granite decode: lkv off the tiles, 7 chunks
+    (1, 4, 1, 1, 10000, 128),    # one kv head: 157 one-tile chunks
+    (1, 8, 2, 2, 300, 64),       # decode, lq 2
+    (1, 8, 2, 4, 1000, 128),     # group 4 x lq 4 = 16 rows: decode, at the boundary
+    (1, 8, 2, 5, 1000, 128),     # 20 rows: prefill, past the boundary
+    (1, 8, 8, 16, 700, 64),      # group 1, a 16-row chunk: decode
+    (1, 16, 2, 2, 500, 32),      # group 8 x lq 2 = 16 rows, D 32: decode
+    (1, 16, 2, 16, 2000, 128),   # a 16-row chunk of group 8 against a longer cache
+    (1, 2, 2, 6, 4, 32),         # decode tile, lq > lkv: leading rows 0
 ])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -207,11 +220,16 @@ def test_attention_kernel_matches_plain(dev, b, hq, hkv, lq, lkv, d, causal, dty
     _assert_attention_close(got, want, dtype)
 
 
-@pytest.mark.parametrize("window", [1, 64, 200, 4096])
+@pytest.mark.parametrize("shape", [
+    (1, 4, 2, 300, 300, 64),
+    (1, 8, 2, 1, 3000, 128),   # decode: the band cut from the cache
+    (1, 1, 1, 16, 1000, 64),   # 16 rows, one kv head: chunks no key of a row sees
+])
+@pytest.mark.parametrize("window", [1, 40, 64, 200, 4096])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_attention_kernel_sliding_window(dev, window, dtype):
+def test_attention_kernel_sliding_window(dev, shape, window, dtype):
     g = torch.Generator(device=dev).manual_seed(window)
-    q, k, v = _qkv(g, dev, dtype, 1, 4, 2, 300, 300, 64)
+    q, k, v = _qkv(g, dev, dtype, *shape)
     for causal in (True, False):
         got = ops.attention(q, k, v, causal=causal, window=window, backend="cuda")
         want = ops.attention(q, k, v, causal=causal, window=window, backend="torch")
@@ -226,11 +244,42 @@ def test_attention_kernel_reads_a_strided_cache_view(dev, dtype):
     cache = torch.randn(2, 3, 8, 130, 128, generator=g, device=dev).to(dtype)
     k, v = cache[0][:, :, :77], cache[1][:, :, :77]
     assert not k.is_contiguous()
-    for lq in (1, 13):
+    for lq in (1, 4, 13):  # decode, decode at 16 rows, prefill
         q = torch.randn(3, 32, lq, 128, generator=g, device=dev).to(dtype)
         got = ops.attention(q, k, v, backend="cuda")
         want = ops.attention(q, k, v, backend="torch")
         _assert_attention_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("scale", [0.3, -0.2])  # the kernels fold a positive scale
+@pytest.mark.parametrize("lq", [1, 200])  # decode, prefill
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_scale(dev, scale, lq, dtype):
+    g = torch.Generator(device=dev).manual_seed(lq)
+    q, k, v = _qkv(g, dev, dtype, 2, 8, 2, lq, 300, 64)
+    got = ops.attention(q, k, v, scale=scale, backend="cuda")
+    want = ops.attention(q, k, v, scale=scale, backend="torch")
+    _assert_attention_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("lq,lkv", [(1, 2079), (4, 2079), (2, 64), (4, 1)])
+def test_attention_paths_agree_at_the_boundary(dev, lq, lkv):
+    """Up to 16 packed rows both bf16 paths take the shape: the split-kv
+    decode (the rule's pick) and the prefill path forced onto it, each within
+    the limits of the plain version, one launch each."""
+    g = torch.Generator(device=dev).manual_seed(lq + lkv)
+    q, k, v = _qkv(g, dev, torch.bfloat16, 2, 32, 8, lq, lkv, 128)
+    assert fa_kernel.attention_path(q, k) == "decode"
+    want = ops.attention(q, k, v, backend="torch")
+    for path in ("decode", "prefill"):
+        before = fa_kernel.LAUNCHES
+        got = fa_kernel.flash_attention_cuda(q, k, v, path=path)
+        assert fa_kernel.LAUNCHES == before + 1
+        _assert_attention_close(got, want, torch.bfloat16)
+    q5 = torch.randn(2, 32, 5, 128, generator=g, device=dev).to(torch.bfloat16)
+    assert fa_kernel.attention_path(q5, k) == "prefill"
+    with pytest.raises(ValueError, match="decode tile"):
+        fa_kernel.flash_attention_cuda(q5, k, v, path="decode")
 
 
 def test_attention_kernel_rejects_bad_inputs(dev):

@@ -18,7 +18,9 @@ them), 20 back-to-back calls of one kernel wrapper or of the one PyTorch
 call that computes the same function: ``segmax_vxm`` (2^20 float32 values
 into 2^21 segments with ``valid_mask``), ``hll_fold`` (2^15 rows into 4,096
 registers with ``init``) and ``cms_fold`` (int32 (4, 4096) cells, 2^15
-proposals), each with a ``_library`` twin (``scatter_reduce_``, ``amax``),
+proposals), each with a ``_library`` twin (``scatter_reduce_``, ``amax``;
+the HLL and Count-Min twins build their indices and casts inside the call,
+as the wrappers do),
 and ``segment_reduce`` (full_graph_sm's 10,752 x 1,433 float32 messages
 into 2,816 segments) with its twin (``index_add_``).  Their device events
 split each wrapper's device time from its host work.
@@ -27,7 +29,8 @@ LM serving, granite-8b at full width with ``--layers`` layers (default all
 36), bf16, weights drawn on the card, four requests: ``lm_prefill`` (2,048
 prompt tokens each into a 2,080-slot cache) and ``lm_decode`` (8 decode
 steps from position 2,048).  Their records add the device time of the
-attention kernel, of the matrix products and of the rest.
+attention kernel (its prefill path in ``lm_prefill``, its split-kv decode
+path and combine in ``lm_decode``), of the matrix products and of the rest.
 
     python3 tools/profile_torch_challenge.py --scale 24
     python3 tools/profile_torch_challenge.py --scale 20 --phases bfs components pagerank triangles
@@ -111,7 +114,7 @@ def _family(kernel_name: str) -> str:
     """The port's own kernels by name; cuBLAS's matrix products (``gemm``,
     ``nvjet``, ``cutlass``, ``xmma``); everything else."""
     name = kernel_name.lower()
-    for fam, keys in (("attention kernel", ("fa_fwd",)),
+    for fam, keys in (("attention kernel", ("fa_prefill", "fa_decode", "fa_fwd")),
                       ("segment-sum kernel", ("segment_sum_rows",)),
                       ("matmul", ("gemm", "nvjet", "cutlass", "xmma"))):
         if any(key in name for key in keys):
@@ -150,15 +153,11 @@ def kernel_phases(dev):
     regs = rand(0, 20, m).float()
     reg_ids = torch.where(rand(0, 16, rows) == 0, -1, rand(0, m, rows))
     rhos = rand(1, 22, rows)
-    spill_h = torch.where(reg_ids >= 0, reg_ids, m).long()
-    regs_spill, rhos_f = torch.cat([regs, regs.new_full((1,), ninf)]), rhos.float()
     depth = 4
     counts = rand(0, 1 << 26, depth, m)
     cols = torch.where(rand(0, 4, 1, rows) == 0, -1, rand(0, m, depth, rows))
     props = rand(0, 1 << 27, rows)
-    keep = cols >= 0
-    flat = (torch.arange(depth, device=dev)[:, None] * m + cols)[keep].long()
-    flat_props, flat_counts = props.expand(depth, rows)[keep], counts.reshape(-1)
+    row0 = torch.arange(depth, device=dev)[:, None] * m
     # full_graph_sm: 10,752 edges (196 padding, at the capacity) x 1,433
     # features into 2,816 node slots
     edges, feats, nodes = 10752, 1433, 2816
@@ -173,11 +172,18 @@ def kernel_phases(dev):
         "segmax_vxm_library": lambda: torch.full(
             (segs + 1,), ninf, device=dev).scatter_reduce_(0, spill, vals, "amax"),
         "hll_fold": lambda: hll_update(regs, reg_ids, rhos, backend="cuda"),
-        "hll_fold_library": lambda: regs_spill.clone().scatter_reduce_(
-            0, spill_h, rhos_f, "amax"),
+        # the two library twins below compute what the wrappers compute, as
+        # chip_smoke.py's yardsticks do: spill and flat indices, casts and
+        # the copy of the registers or cells inside the call
+        "hll_fold_library": lambda: torch.cat(
+            [regs, regs.new_full((1,), ninf)]).scatter_reduce_(
+            0, torch.where(reg_ids >= 0, reg_ids, m).long(), rhos.float(),
+            "amax")[:m],
         "cms_fold": lambda: cms_update(counts, cols, props, backend="cuda"),
-        "cms_fold_library": lambda: flat_counts.clone().scatter_reduce_(
-            0, flat, flat_props, "amax"),
+        "cms_fold_library": lambda: torch.cat(
+            [counts.reshape(-1), counts.new_zeros(1)]).scatter_reduce_(
+            0, torch.where(cols >= 0, row0 + cols, depth * m).long().reshape(-1),
+            props.expand(depth, rows).reshape(-1), "amax")[:-1].view(depth, m),
         "segment_reduce": lambda: segment_reduce(msgs, recv, nodes, backend="cuda"),
         "segment_reduce_library": lambda: torch.zeros(
             nodes + 1, feats, device=dev).index_add_(0, recv_spill, msgs),
