@@ -11,8 +11,11 @@ Phases (any failure exits non-zero):
    CUDA sources under ``src/repro_torch/kernels/csrc/`` in parallel (one
    ``nvcc`` each) and print each ``-Xptxas -v`` report.
 2. Kernels against their plain versions on the card, at the main path's
-   shapes, each shape timed beside the plain version, one PyTorch call that
-   computes the same function and the bytes bound:
+   shapes, each shape timed by events and on the device alone (the host's
+   work left out) beside the plain version, one PyTorch call that computes
+   the same function from the same inputs (its index casts, spill slots,
+   fills and masks inside the timed call; checked bit-equal where the sums
+   are exact) and the bytes bound:
    * histogram: 2^24 rows into 8,192 float bins and a gated int32 sum into
      2^24 + 1 segments (bit-equal), the ``init``/``valid_mask``/``retire``
      epilogue, ``n == 0``, out-of-range ids and random float weights (to a
@@ -65,10 +68,17 @@ Phases (any failure exits non-zero):
      and (d32k) with the prefill path forced beside the decode path;
    * segment sum at the GNN regimes of ``configs/common_gnn.py``: molecule
      (8,192 edges x 64 features into 4,096 segments) and full_graph_sm
-     (10,752 x 1,433 into 2,816, 196 padding edges at the capacity):
-     integer-valued floats bit-equal, random floats within a reordering
-     tolerance; then ``ops.segment_reduce`` as a GNN aggregation calls it
-     (``backend="auto"``), once per regime: the entry point's own run.
+     (10,752 x 1,433 into 2,816, 196 padding edges at the capacity), which
+     the kernel's planner launches direct, and minibatch_lg (168,960 x 602
+     into 170,496) and ogb_products (61,865,984 x 100 into 2,449,920),
+     which it partitions: integer-valued floats bit-equal, random floats
+     within a reordering tolerance (not at ogb_products, whose float64
+     copies would not fit the card), each regime timed by events and on
+     the device alone beside ``index_add_`` with its spill index inside
+     the call, and molecule again with half its rows on one node (a hub);
+     then ``ops.segment_reduce`` as a GNN aggregation calls it
+     (``backend="auto"``), once per regime of the first two: the entry
+     point's own run.
 7. LM serving at full size: granite-8b, 36 layers, d_model 4,096, bf16,
    weights drawn on the card from ``SEED``; four requests of 2,048 random
    tokens prefilled into a 2,080-slot cache, then 32 greedy decode steps,
@@ -210,12 +220,15 @@ def time_ms(fn) -> float:
     return start.elapsed_time(end) / REPS
 
 
-def device_time_ms(fn) -> float:
+def device_time_ms(fn, may_sync: bool = False):
     """Mean device time of one call, by CUDA events over REPS calls queued
     behind a sleep kernel: the device starts them only after the host has
     queued them all, so the host's work per call (the wrapper's checks and
     launches) is left out.  Checked: the host must finish queueing before
-    the device reaches the start event, else the sleep is lengthened."""
+    the device reaches the start event, else the sleep is lengthened.  A
+    call that waits for the device (``torch.bincount`` reads its ids' max
+    on the host) never gets ahead: with ``may_sync`` it gives None, "not
+    measured", where any other call raises."""
     import torch
 
     fn()
@@ -232,7 +245,18 @@ def device_time_ms(fn) -> float:
         torch.cuda.synchronize()
         if ahead:
             return start.elapsed_time(end) / REPS
+    if may_sync:
+        return None
     raise AssertionError("the host did not get ahead of the device")
+
+
+def timings(kern, plain, library) -> dict:
+    """A kernel call's event and device-only times beside its plain
+    version's and its library yardstick's (``library`` builds whatever
+    index, cast or fill the kernel's function needs inside the call)."""
+    return {"ms": time_ms(kern), "plain_ms": time_ms(plain),
+            "library_ms": time_ms(library), "device_ms": device_time_ms(kern),
+            "library_device_ms": device_time_ms(library, may_sync=True)}
 
 
 def same(name, got, want):
@@ -267,11 +291,12 @@ def check_histogram(dev):
     kern = lambda: histogram(ids, bins_a, w, backend="cuda")
     plain = lambda: histogram(ids, bins_a, w, backend="torch")
     same(f"(a) 2^{SCALE} rows -> {bins_a} float bins", kern(), plain())
-    ids_long = ids.long()
+    # each library yardstick computes the kernel's function from the
+    # kernel's inputs: its index casts, spill slots and masks are timed too
     shapes.append({
         "case": f"a: ids int32 (2^{SCALE},), weights float32, {bins_a} bins",
-        "ms": time_ms(kern), "plain_ms": time_ms(plain),
-        "library_ms": time_ms(lambda: torch.bincount(ids_long, w, minlength=bins_a)),
+        **timings(kern, plain,
+                  lambda: torch.bincount(ids.long(), w, minlength=bins_a)),
         "bound_ms": (8 * n + 4 * bins_a) / HBM_BYTES_PER_S * 1e3,
     })
 
@@ -286,13 +311,11 @@ def check_histogram(dev):
     plain = lambda: segmented_reduce(wi, seg, segs, backend="torch", **kw)
     same(f"(b) gated int32 sum, 2^{SCALE} rows -> 2^{SCALE}+1 segments",
          kern(), plain())
-    seg_long, gated_w = seg.long(), torch.where(gate == 3, wi, 0).float()
     shapes.append({
         "case": f"b: seg int32 (2^{SCALE},), gate int32, weights int32, "
                 f"2^{SCALE}+1 segments",
-        "ms": time_ms(kern), "plain_ms": time_ms(plain),
-        "library_ms": time_ms(lambda: torch.bincount(seg_long, gated_w,
-                                                      minlength=segs)),
+        **timings(kern, plain, lambda: torch.bincount(
+            seg.long(), torch.where(gate == 3, wi, 0).float(), minlength=segs)),
         "bound_ms": (12 * n + 4 * segs) / HBM_BYTES_PER_S * 1e3,
     })
 
@@ -330,9 +353,9 @@ def check_histogram(dev):
     w_f = torch.randn(n, generator=g, device=dev)
     got = histogram(ids, bins_a, w_f, backend="cuda").double()
     want = histogram(ids, bins_a, w_f, backend="torch").double()
-    k_max = torch.bincount(ids_long, minlength=bins_a).max().item()
+    k_max = torch.bincount(ids.long(), minlength=bins_a).max().item()
     abs_sum = torch.zeros(bins_a, dtype=torch.float64, device=dev).index_add_(
-        0, ids_long, w_f.abs().double())
+        0, ids.long(), w_f.abs().double())
     err = (got - want).abs()
     tol = 2 * k_max * 2.0 ** -24 * abs_sum
     if not bool((err <= tol).all()):
@@ -368,9 +391,9 @@ def check_histogram(dev):
     shapes.append({
         "case": f"n: vals float32 (2^{ALGO_SCALE},), seg int32, "
                 f"2^{ALGO_SCALE + 1} segments, valid_mask",
-        "ms": time_ms(kern), "plain_ms": time_ms(plain),
-        "library_ms": time_ms(lambda: torch.zeros(segs + 1, device=dev)
-                              .index_add_(0, spill, prod)),
+        **timings(kern, plain, lambda: torch.zeros(segs + 1, device=dev)
+                  .index_add_(0, torch.where(seg >= 0, seg, segs).long(),
+                              prod)[:segs].masked_fill(~live, 0.0)),
         "bound_ms": (8 * m + 4 * segs + segs) / HBM_BYTES_PER_S * 1e3,
     })
 
@@ -386,14 +409,14 @@ def check_histogram(dev):
     plain = lambda: segmented_reduce(counts, seg, segs, backend="torch", **kw)
     same(f"(o) triangle roll-up: 2^{ALGO_SCALE} int32 counts -> "
          f"2^{ALGO_SCALE + 1} int32 segments, ids -1", kern(), plain())
-    spill = torch.where(seg >= 0, seg, segs).long()
+    library = lambda: torch.zeros(segs + 1, dtype=torch.int32, device=dev
+                                  ).index_add_(0, torch.where(seg >= 0, seg, segs)
+                                               .long(), counts)[:segs]
+    same("(o) the library yardstick computes the same sums", library(), plain())
     shapes.append({
         "case": f"o: counts int32 (2^{ALGO_SCALE},), seg int32, "
                 f"2^{ALGO_SCALE + 1} int32 segments",
-        "ms": time_ms(kern), "plain_ms": time_ms(plain),
-        "library_ms": time_ms(lambda: torch.zeros(segs + 1, dtype=torch.int32,
-                                                  device=dev)
-                              .index_add_(0, spill, counts)),
+        **timings(kern, plain, library),
         "bound_ms": (8 * m + 4 * segs) / HBM_BYTES_PER_S * 1e3,
     })
     return max_err, shapes
@@ -423,8 +446,7 @@ def check_segment_max(dev):
 
     def timed(case, kern, plain, library, n, segs, extra_bytes):
         shapes.append({
-            "case": case, "ms": time_ms(kern), "plain_ms": time_ms(plain),
-            "library_ms": time_ms(library),
+            "case": case, **timings(kern, plain, library),
             "bound_ms": (8 * n + 4 * segs + extra_bytes) / HBM_BYTES_PER_S * 1e3,
         })
 
@@ -440,13 +462,19 @@ def check_segment_max(dev):
     plain = lambda: segmented_reduce(vals, seg, segs, backend="torch", **kw)
     same(f"(g) vxm: 2^{ALGO_SCALE} values -> 2^{ALGO_SCALE + 1} segments, "
          "valid_mask/retire", kern(), plain())
-    spill = torch.where(seg >= 0, seg, segs).long()
+    # the library call computes what the wrapper computes: the spill index,
+    # the -inf fill and the retired segments are inside the timed call
+    library = lambda: torch.full((segs + 1,), float("-inf"), device=dev
+                                 ).scatter_reduce_(
+        0, torch.where(seg >= 0, seg, segs).long(), vals, "amax"
+    )[:segs].masked_fill(~mask, float("-inf"))
+    same("(g) the library yardstick computes the same maxima", library(), plain())
     timed(f"g: vals float32 (2^{ALGO_SCALE},), seg int32, 2^{ALGO_SCALE + 1} "
-          "segments, valid_mask",
-          kern, plain,
-          lambda: torch.full((segs + 1,), float("-inf"), device=dev)
-          .scatter_reduce_(0, spill, vals, "amax"),
-          n, segs, segs)
+          "segments, valid_mask", kern, plain, library, n, segs, segs)
+    # what the fold costs beyond the seed and the grid barrier: the same
+    # call with no rows (the seed of the 2^21 slots alone)
+    shapes[-1]["no_rows_device_ms"] = device_time_ms(
+        lambda: segmented_reduce(vals[:0], seg[:0], segs, backend="cuda", **kw))
 
     # (h) the HyperLogLog fold: 2^15 rows into 4,096 registers with init
     m = 4096
@@ -458,14 +486,15 @@ def check_segment_max(dev):
     same("(h) HLL fold: 2^15 rows -> 4,096 registers with init", kern(), plain())
     # the library call computes what the wrapper computes: the spill index,
     # the cast and the copy of the registers are inside the timed call
+    library = lambda: torch.cat([regs, regs.new_full((1,), float("-inf"))]
+                                ).scatter_reduce_(
+        0, torch.where(reg_ids >= 0, reg_ids, m).long(), rhos.float(), "amax")[:m]
+    same("(h) the library yardstick computes the same registers", library(),
+         plain())
     timed("h: rho int32 (2^15,), reg ids int32, 4,096 registers, init",
-          kern, plain,
-          lambda: torch.cat([regs, regs.new_full((1,), float("-inf"))])
-          .scatter_reduce_(0, torch.where(reg_ids >= 0, reg_ids, m).long(),
-                           rhos.float(), "amax")[:m],
-          SKETCH_BATCH, m, 4 * m)
+          kern, plain, library, SKETCH_BATCH, m, 4 * m)
 
-    # (i) the epilogues on both kernel paths, no rows, out-of-range ids
+    # (i) the epilogues, no rows, out-of-range ids
     for nseg in (1000, 4096, 20000):
         k = 1 << 18
         ids = rand(-100, nseg + 100, k)
@@ -526,8 +555,7 @@ def check_cms(dev):
     shapes.append({
         "case": "j: cells int32 (4, 4096), col ids int32 (4, 2^15), "
                 "proposals int32 (2^15,)",
-        "ms": time_ms(kern), "plain_ms": time_ms(plain),
-        "library_ms": time_ms(library),
+        **timings(kern, plain, library),
         "bound_ms": (4 * depth * n + 4 * n + 8 * depth * width)
         / HBM_BYTES_PER_S * 1e3,
     })
@@ -964,17 +992,28 @@ def check_attention(dev):
 GNN_REGIMES = {
     "molecule": (8192, 8192, 64, 4096, 3840),
     "full_graph_sm": (10752, 10556, 1433, 2816, 2708),
+    "minibatch_lg": (168960, 168960, 602, 170496, 169984),
+    "ogb_products": (61865984, 61859140, 100, 2449920, 2449029),
 }
+# the regimes a GNN aggregation runs through the entry point (the others
+# are held to the plain version and timed: the kernel's partitioned launch)
+AGGREGATION_REGIMES = ("molecule", "full_graph_sm")
+# regimes whose random-float check (float64 copies of the messages) would
+# not fit the card beside them
+INTEGER_ONLY = ("ogb_products",)
 
 
-def _gnn_inputs(g, dev, regime):
+def _gnn_inputs(g, dev, regime, features=True):
     """Random receivers (seeded) over the real nodes, the padding edges
-    pointing at the capacity (dropped), and random senders' features."""
+    pointing at the capacity (dropped), and random senders' features
+    (None without ``features``)."""
     import torch
 
     n, real, d, segs, nodes = GNN_REGIMES[regime]
     recv = torch.randint(0, nodes, (n,), generator=g, device=dev, dtype=torch.int32)
     recv[real:] = segs
+    if not features:
+        return None, None, recv, segs
     feats = torch.randn(nodes, d, generator=g, device=dev)
     send = torch.randint(0, nodes, (n,), generator=g, device=dev)
     return feats, send, recv, segs
@@ -985,43 +1024,78 @@ def check_segment_sum(dev):
     regimes.  Returns (max_abs_err, timed shape records)."""
     import torch
     from repro_torch.kernels.ops import segment_reduce
+    from repro_torch.kernels.segment_matmul import plan_segment_sum
 
     g = torch.Generator(device=dev).manual_seed(4)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     max_err = 0.0
     shapes = []
+    one = torch.zeros(1, device=dev)
+    launch_ms = device_time_ms(lambda: one.add_(1))  # a launch's own cost
     for regime in GNN_REGIMES:
-        feats, send, recv, segs = _gnn_inputs(g, dev, regime)
-        n, d = send.shape[0], feats.shape[1]
+        n, _, d, segs, _ = GNN_REGIMES[regime]
+        plan = plan_segment_sum(n, d, segs, sms)
+        way = "partitioned" if plan.parts else "direct"
         # integer-valued messages: float sums exact in any order
-        ints = torch.randint(-8, 9, (n, d), generator=g, device=dev).float()
-        same(f"({regime}) {n} x {d} integer-valued -> {segs} segments",
+        ints = torch.randint(-8, 9, (n, d), generator=g, device=dev,
+                             dtype=torch.float32)
+        _, _, recv, _ = _gnn_inputs(g, dev, regime, features=False)
+        same(f"({regime}) {n} x {d} integer-valued -> {segs} segments, {way}",
              segment_reduce(ints, recv, segs, backend="cuda"),
              segment_reduce(ints, recv, segs, backend="torch"))
-        # random messages, gathered as a GNN layer gathers them; tolerance:
-        # a sum of k terms in any order is within (k-1) * 2^-24 * sum|x| of
-        # any other order
-        msgs = feats[send]
+        msgs = ints
+        if regime not in INTEGER_ONLY:
+            del ints
+            # random messages, gathered as a GNN layer gathers them;
+            # tolerance: a sum of k terms in any order is within
+            # (k-1) * 2^-24 * sum|x| of any other order
+            feats, send, recv, segs = _gnn_inputs(g, dev, regime)
+            msgs = feats[send]
+            got = segment_reduce(msgs, recv, segs, backend="cuda").double()
+            want = segment_reduce(msgs, recv, segs, backend="torch").double()
+            spill = torch.where(recv < segs, recv, segs).long()  # ids are >= 0
+            k_max = torch.bincount(spill, minlength=segs + 1)[:segs].max().item()
+            abs_sum = torch.zeros(segs + 1, d, dtype=torch.float64, device=dev
+                                  ).index_add_(0, spill, msgs.abs().double())[:segs]
+            err = (got - want).abs()
+            if not bool((err <= 2 * k_max * 2.0 ** -24 * abs_sum).all()):
+                raise AssertionError(f"({regime}) random floats: max |diff| "
+                                     f"{err.max().item()} beyond tolerance")
+            max_err = max(max_err, err.max().item())
+            log(f"  ({regime}) random float messages: max |diff| "
+                f"{err.max().item():.3g} (tolerance 2 * {k_max} * 2^-24 * sum|x|)")
+            del got, want, abs_sum, err, spill
         kern = lambda: segment_reduce(msgs, recv, segs, backend="cuda")
         plain = lambda: segment_reduce(msgs, recv, segs, backend="torch")
-        got, want = kern().double(), plain().double()
-        spill = torch.where(recv < segs, recv, segs).long()
-        k_max = torch.bincount(spill, minlength=segs + 1)[:segs].max().item()
-        abs_sum = torch.zeros(segs + 1, d, dtype=torch.float64, device=dev
-                              ).index_add_(0, spill, msgs.abs().double())[:segs]
-        err = (got - want).abs()
-        if not bool((err <= 2 * k_max * 2.0 ** -24 * abs_sum).all()):
-            raise AssertionError(f"({regime}) random floats: max |diff| "
-                                 f"{err.max().item()} beyond tolerance")
-        max_err = max(max_err, err.max().item())
-        log(f"  ({regime}) random float messages: max |diff| "
-            f"{err.max().item():.3g} (tolerance 2 * {k_max} * 2^-24 * sum|x|)")
+        kind = "random" if regime not in INTEGER_ONLY else "integer-valued"
         shapes.append({
-            "case": f"{regime}: x float32 ({n}, {d}), seg int32, {segs} segments",
-            "ms": time_ms(kern), "plain_ms": time_ms(plain),
-            "library_ms": time_ms(lambda: torch.zeros(segs + 1, d, device=dev)
-                                  .index_add_(0, spill, msgs)),
+            "case": f"{regime}: x float32 ({n}, {d}) {kind}, seg int32, {segs} "
+                    f"segments, {way}",
+            **timings(kern, plain, lambda: torch.zeros(segs + 1, d, device=dev)
+                      .index_add_(0, torch.where(recv < segs, recv, segs).long(),
+                                  msgs)[:segs]),
+            "one_element_add_device_ms": launch_ms,
             "bound_ms": (4 * n * d + 4 * n + 4 * segs * d) / HBM_BYTES_PER_S * 1e3,
         })
+        del msgs, recv
+        torch.cuda.empty_cache()
+    # a hub: half of molecule's rows on one node, which the kernel sums in
+    # equal runs of rows across a block's warps
+    n, real, d, segs, nodes = GNN_REGIMES["molecule"]
+    _, _, recv, _ = _gnn_inputs(g, dev, "molecule", features=False)
+    recv[::2] = nodes // 2
+    ints = torch.randint(-8, 9, (n, d), generator=g, device=dev, dtype=torch.float32)
+    kern = lambda: segment_reduce(ints, recv, segs, backend="cuda")
+    plain = lambda: segment_reduce(ints, recv, segs, backend="torch")
+    same(f"(molecule, hub) {n // 2} of {n} rows on one node", kern(), plain())
+    shapes.append({
+        "case": f"molecule with a hub: x float32 ({n}, {d}) integer-valued, "
+                f"{n // 2} rows on one of {segs} segments",
+        **timings(kern, plain, lambda: torch.zeros(segs + 1, d, device=dev)
+                  .index_add_(0, torch.where(recv < segs, recv, segs).long(),
+                              ints)[:segs]),
+        "bound_ms": (4 * n * d + 4 * n + 4 * segs * d) / HBM_BYTES_PER_S * 1e3,
+    })
     return max_err, shapes
 
 
@@ -1033,7 +1107,7 @@ def segment_reduce_path(dev) -> dict:
     from repro_torch.kernels.ops import segment_reduce
 
     g = torch.Generator(device=dev).manual_seed(5)
-    inputs = {r: _gnn_inputs(g, dev, r) for r in GNN_REGIMES}
+    inputs = {r: _gnn_inputs(g, dev, r) for r in AGGREGATION_REGIMES}
     torch.cuda.synchronize()
     reset_launches()
     out = {r: segment_reduce(feats[send], recv, segs)
@@ -1046,7 +1120,8 @@ def segment_reduce_path(dev) -> dict:
             raise AssertionError(f"segment_reduce ({r}): bad aggregate")
         if bool(agg[GNN_REGIMES[r][4]:].any()):
             raise AssertionError(f"segment_reduce ({r}): padding nodes received")
-    if launches != {**{k: 0 for k in launches}, "segment_matmul": len(GNN_REGIMES)}:
+    if launches != {**{k: 0 for k in launches},
+                    "segment_matmul": len(AGGREGATION_REGIMES)}:
         raise AssertionError(f"segment_reduce: launches {launches}")
     log(f"[segment_reduce] one GNN aggregation per regime: launches {launches}")
     return launches

@@ -27,14 +27,13 @@ launches, so a run can show that its main path went through the kernel.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
-import functools
 from typing import Optional, Tuple
 
 import torch
 
 from . import build
+from ._device import _on_device, _sm_count
 
 __all__ = ["LAUNCHES", "HEAD_DIMS", "DECODE_ROWS", "attention_path",
            "decode_split", "flash_attention_cuda"]
@@ -71,11 +70,6 @@ def _bind():
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def attention_path(q: torch.Tensor, k: torch.Tensor) -> str:
@@ -187,11 +181,10 @@ def flash_attention_cuda(
         lq * hq * d if b > 1 else 0, d if hq > 1 else 0, hq * d if lq > 1 else 0)
     part, split = None, (0, 0, 0)
     if path == "decode":
-        split = decode_split(b, hkv, lq, lkv, window, _sm_count(q.device.index))
+        split = decode_split(b, hkv, lq, lkv, window, _sm_count(q.device))
         part = torch.empty(split[2] * hkv * b * DECODE_ROWS * (d + 2),
                            dtype=torch.float32, device=q.device)
-    with (contextlib.nullcontext() if q.device.index == torch.cuda.current_device()
-          else torch.cuda.device(q.device)):
+    with _on_device(q.device):
         err = _bind()(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), strides, b, hq, hkv, lq, lkv, d, int(causal),

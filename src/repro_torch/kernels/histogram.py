@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 
 from . import build
+from ._device import _check, _on_device, _sm_count
 
 __all__ = ["LAUNCHES", "histogram_cuda"]
 
@@ -36,16 +37,6 @@ def _bind() -> ctypes.CDLL:
                        ctypes.c_int, p, p, ctypes.c_double, ctypes.c_int, p]
         fn.restype = ctypes.c_int
     return fn
-
-
-def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape, device):
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, ids on {device}")
-    if x.dtype != dtype:
-        raise ValueError(f"{name} must be {dtype}, got {x.dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
-                         f"{tuple(x.shape)}")
 
 
 def histogram_cuda(
@@ -102,12 +93,11 @@ def histogram_cuda(
         return out
 
     ptr = lambda t: None if t is None else t.data_ptr()
-    with torch.cuda.device(device):
+    with _on_device(device):
         err = _bind()(
             int(acc == torch.int32), ptr(ids), ptr(weights), ptr(gate_ids),
             0 if gate_ids is None else gate_value, n, num_bins, ptr(out),
-            ptr(valid_mask), float(retire),
-            torch.cuda.get_device_properties(device).multi_processor_count,
+            ptr(valid_mask), float(retire), _sm_count(device),
             torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:

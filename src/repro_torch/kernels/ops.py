@@ -16,8 +16,12 @@ vxm's ``2 * capacity`` vertex slots, off the kernels; the port has none,
 and no fallback: a kernel that fails to build or launch raises.  The same
 holds for :func:`segment_reduce`: the reference keeps its one-hot matmul to
 ``_MATMUL_SEGMENT_LIMIT`` segments because that kernel's work grows with
-the segment count, and the CUDA kernel, a scatter, does no such work, so
-it serves every size.
+the segment count.  The CUDA kernel does no one-hot work; its blocks find
+their tiles' rows either by reading every id, which costs n ids a tile and
+serves only small n, or from a sort of the rows by tile made in the same
+launch, whose cost does not grow with the tiles;
+``segment_matmul.plan_segment_sum`` picks by n and the tiles, so it serves
+every size.
 """
 from __future__ import annotations
 

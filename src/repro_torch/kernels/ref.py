@@ -11,8 +11,9 @@ from typing import Optional
 
 import torch
 
-__all__ = ["ref_histogram", "ref_segment_max", "ref_cms_update", "ref_hll_update",
-           "ref_segment_matmul", "ref_attention", "ref_attention_split"]
+__all__ = ["ref_histogram", "ref_segment_max", "ref_segment_max_blocked",
+           "ref_cms_update", "ref_hll_update", "ref_segment_matmul",
+           "ref_segment_matmul_tiled", "ref_attention", "ref_attention_split"]
 
 
 def ref_histogram(
@@ -87,6 +88,49 @@ def ref_segment_max(
     return out
 
 
+def ref_segment_max_blocked(
+    vals: torch.Tensor,
+    seg_ids: torch.Tensor,
+    num_segments: int,
+    *,
+    init: Optional[torch.Tensor] = None,
+    gate_ids: Optional[torch.Tensor] = None,
+    gate_value=None,
+    valid_mask: Optional[torch.Tensor] = None,
+    retire=float("-inf"),
+    blocks: int = 16,
+    block_rows: int = 1024,
+) -> torch.Tensor:
+    """:func:`ref_segment_max` by the decomposition of the CUDA kernel: a
+    seed phase applies the mask (``valid_mask ? init or -inf : retire``),
+    then the fold maxes the kept rows whose segment is valid into the seeded
+    output, one grid-stride step of ``blocks`` x ``block_rows`` rows at a
+    time; a masked segment keeps ``retire`` whatever rows it receives.  For
+    tests; no path runs it.
+    """
+    dev = seg_ids.device
+    n = seg_ids.shape[0]
+    valid = (torch.ones(num_segments, dtype=torch.bool, device=dev)
+             if valid_mask is None else valid_mask)
+    seed = (torch.full((num_segments,), float("-inf"), device=dev)
+            if init is None else init.to(torch.float32))
+    out = torch.where(valid, seed, torch.tensor(float(retire), device=dev))
+    ok = (seg_ids >= 0) & (seg_ids < num_segments)
+    if gate_ids is not None:
+        ok = ok & (gate_ids == gate_value)
+    ok = ok & valid[torch.where(ok, seg_ids, 0).long()]
+    v = vals.to(torch.float32)
+    step = blocks * block_rows
+    for r0 in range(0, n, step):
+        rows = slice(r0, r0 + step)
+        folded = torch.full((num_segments + 1,), float("-inf"), device=dev
+                            ).scatter_reduce_(
+            0, torch.where(ok[rows], seg_ids[rows], num_segments).long(), v[rows],
+            reduce="amax")[:num_segments]
+        out = torch.maximum(out, folded)
+    return out
+
+
 def ref_cms_update(
     counts: torch.Tensor,
     col_ids: torch.Tensor,
@@ -143,6 +187,107 @@ def ref_segment_matmul(
     return torch.zeros(num_segments + 1, x.shape[1], dtype=torch.float32,
                        device=x.device).index_add_(
         0, torch.where(ok, seg_ids, num_segments).long(), rows)[:num_segments]
+
+
+def ref_segment_matmul_tiled(
+    x: torch.Tensor,
+    seg_ids: torch.Tensor,
+    num_segments: int,
+    *,
+    ts: int,
+    tf: int,
+    cap: int,
+    parts: int = 0,
+    warps: int = 32,
+    split_slack: int = 16,
+) -> torch.Tensor:
+    """:func:`ref_segment_matmul` by the decomposition of the CUDA kernel:
+    one tile of ``ts`` segments x ``tf`` features at a time.  With
+    ``parts`` = 0 (direct) a tile's source is every id; else the rows are
+    first sorted by tile as the partitioned launch sorts them (``parts``
+    contiguous chunks of rows counted per tile, each tile's counts turned
+    into a prefix over the chunks, the tiles' starts the prefix of their
+    totals, each row placed at its tile's start + its chunk's prefix + its
+    rank in the chunk), and a tile's source is its run of that list.  The
+    source is read in rounds of ``cap``; each round's rows that fall in the
+    tile sorted by segment (stable, as a counting sort with ranks in source
+    order would); each segment summed in float32 one row after another by
+    the warp that owns it (``warps`` equal shares of the segments), or,
+    where the round's largest segment holds more than ``split_slack`` rows
+    above an equal share of the rows, by warps taking equal runs of the
+    sorted rows: a segment in pieces, one for each run it spans, added in
+    run order; the sum stored in the first round or added to the stored
+    one later.
+    Raises if an element of the result is stored other than once, or if
+    the sorted list is not the in-range rows grouped by tile.  For tests;
+    no path runs it.
+    """
+    n, d = x.shape
+    out = torch.empty(num_segments, d, dtype=torch.float32, device=x.device)
+    stored = torch.zeros(num_segments, d, dtype=torch.int32, device=x.device)
+    ids = seg_ids.to(torch.int64)
+    tiles = -(-num_segments // ts)
+    rows_of = None
+    if parts:
+        ok = (ids >= 0) & (ids < num_segments)
+        tile = torch.where(ok, ids // ts, -1)
+        bounds = [n * g // parts for g in range(parts + 1)]  # chunk g's rows
+        counts = torch.zeros(tiles, parts, dtype=torch.int64)
+        for g in range(parts):
+            t = tile[bounds[g]:bounds[g + 1]]
+            counts[:, g] = torch.bincount(t[t >= 0], minlength=tiles)
+        prefix = torch.cumsum(counts, 1) - counts
+        totals = counts.sum(1)
+        starts = torch.cat([torch.zeros(1, dtype=torch.int64), torch.cumsum(totals, 0)])
+        perm = torch.full((int(starts[-1]),), -1, dtype=torch.int64)
+        for g in range(parts):
+            rank = torch.zeros(tiles, dtype=torch.int64)
+            for i in range(bounds[g], bounds[g + 1]):
+                t = int(tile[i])
+                if t >= 0:
+                    perm[int(starts[t] + prefix[t, g] + rank[t])] = i
+                    rank[t] += 1
+        hit = torch.nonzero(ok).flatten()
+        if not (torch.equal(torch.sort(perm).values, hit)
+                and torch.equal(tile[perm], torch.sort(tile[hit]).values)):
+            raise AssertionError("the sorted rows are not the in-range rows by tile")
+        rows_of = [perm[int(starts[t]):int(starts[t + 1])] for t in range(tiles)]
+    for s0 in range(0, num_segments, ts):
+        rows = min(ts, num_segments - s0)
+        source = torch.arange(n) if rows_of is None else rows_of[s0 // ts]
+        for f0 in range(0, d, tf):
+            cols = min(tf, d - f0)
+            for r0 in range(0, max(len(source), 1), cap):
+                src = source[r0:r0 + cap]
+                part = ids[src] - s0
+                hit = torch.nonzero((part >= 0) & (part < rows)).flatten()
+                order = torch.sort(part[hit], stable=True).indices
+                hit, local = src[hit[order]], part[hit][order]
+                per = -(-len(hit) // warps)  # rows a warp's run
+                offset = torch.searchsorted(local, torch.arange(rows + 1)).tolist()
+                biggest = max((b - a for a, b in zip(offset, offset[1:])), default=0)
+                split = biggest > per + split_slack
+                for l in range(rows):
+                    acc = torch.zeros(cols, dtype=torch.float32, device=x.device)
+                    q = offset[l]
+                    while True:  # the owner's piece, then the next runs' heads
+                        end = (min(offset[l + 1], (q // per + 1) * per) if split
+                               else offset[l + 1])
+                        piece = torch.zeros(cols, dtype=torch.float32, device=x.device)
+                        for i in hit[q:end].tolist():
+                            piece = piece + x[i, f0:f0 + cols].to(torch.float32)
+                        acc = piece if q == offset[l] else acc + piece
+                        q = end
+                        if q >= offset[l + 1]:
+                            break
+                    if r0 == 0:
+                        out[s0 + l, f0:f0 + cols] = acc
+                        stored[s0 + l, f0:f0 + cols] += 1
+                    else:
+                        out[s0 + l, f0:f0 + cols] += acc
+    if not bool((stored == 1).all()):
+        raise AssertionError("a result element stored other than once")
+    return out
 
 
 def ref_attention(

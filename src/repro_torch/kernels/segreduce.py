@@ -2,9 +2,12 @@
 
 Replaces the TPU kernel ``segment_max_pallas`` (``repro/kernels/segreduce.py:92``,
 body ``_make_segmax_kernel`` at ``:42``): a one-hot compare-select over a
-sequential grid there, a scatter with a float atomic max here
-(``csrc/segreduce.cu`` says why and what bounds it).  The plain version of
-the same contract is :func:`repro_torch.kernels.ref.ref_segment_max`.
+sequential grid there, one cooperative launch here that seeds the segments
+and then scatters with a float atomic max (``csrc/segreduce.cu`` says how
+and what bounds it).  The plain version of the same contract is
+:func:`repro_torch.kernels.ref.ref_segment_max`, and
+:func:`repro_torch.kernels.ref.ref_segment_max_blocked` mirrors the
+kernel's seed and fold.
 
 :func:`segment_max_cuda` takes CUDA tensors only and raises on anything
 else; the dispatch between kernel and plain version lives in
@@ -14,26 +17,46 @@ launches, so a run can show that its main path went through the kernel.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 from . import build
-from .histogram import _check
+from ._device import _check, _on_device, _sm_count
 
 __all__ = ["LAUNCHES", "segment_max_cuda"]
 
 LAUNCHES = 0
 
+# values and init in their own type; any other is cast to float32 first
+_KINDS = {torch.float32: 0, torch.int32: 1}
+_BLOCKS: Dict[int, int] = {}  # device index -> co-resident cooperative blocks
 
-def _bind() -> ctypes.CDLL:
-    fn = build.load("segreduce").segment_max_launch
+
+def _bind():
+    lib = build.load("segreduce")
+    fn = lib.segment_max_launch
     if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, ctypes.c_int32, ctypes.c_longlong, ctypes.c_int,
-                       p, p, ctypes.c_float, ctypes.c_int, p]
-        fn.restype = ctypes.c_int
-    return fn
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.segment_max_setup.argtypes = [i, ctypes.POINTER(i)]
+        lib.segment_max_setup.restype = i
+        fn.argtypes = [i, i, p, p, p, ctypes.c_int32, ctypes.c_longlong, i, p, p,
+                       ctypes.c_float, p, i, p]
+        fn.restype = i
+    return lib, fn
+
+
+def _setup(lib, device: torch.device) -> int:
+    """The cooperative kernel's co-resident blocks on ``device``, found once;
+    the device must be current."""
+    got = _BLOCKS.get(device.index)
+    if got is None:
+        blocks = ctypes.c_int()
+        err = lib.segment_max_setup(_sm_count(device), ctypes.byref(blocks))
+        if err != 0:
+            raise RuntimeError(f"segment-max kernel setup failed: cudaError {err}")
+        got = _BLOCKS[device.index] = blocks.value
+    return got
 
 
 def segment_max_cuda(
@@ -50,9 +73,12 @@ def segment_max_cuda(
     """Per-segment float32 max on the card: the contract of
     ``ref_segment_max``.
 
-    ``seg_ids`` (and ``gate_ids``) are int32 ``(n,)``; ``vals`` ``(n,)`` are
-    cast to float32; ``init`` and the bool ``valid_mask`` are
-    ``(num_segments,)``.  Launches on the current stream and does not
+    ``seg_ids`` (and ``gate_ids``) are int32 ``(n,)``; ``vals`` ``(n,)`` and
+    ``init`` ``(num_segments,)`` are read as float32 or int32 (any other type
+    is cast to float32 first); the bool ``valid_mask`` is
+    ``(num_segments,)``.  With rows, or a mask, a call is one launch,
+    which writes every element of the float32 result; with neither, it
+    launches nothing.  Launches on the current stream and does not
     synchronize.
     """
     global LAUNCHES
@@ -68,7 +94,9 @@ def segment_max_cuda(
     _check("seg_ids", seg_ids, torch.int32, (n,), device)
     _check("vals", vals, vals.dtype, (n,), device)
     seg_ids = seg_ids.contiguous()
-    vals = vals.to(torch.float32).contiguous()
+    if vals.dtype not in _KINDS:
+        vals = vals.to(torch.float32)
+    vals = vals.contiguous()
     if gate_ids is not None:
         _check("gate_ids", gate_ids, torch.int32, (n,), device)
         gate_ids = gate_ids.contiguous()
@@ -80,20 +108,27 @@ def segment_max_cuda(
         valid_mask = valid_mask.contiguous()
     if init is not None:
         _check("init", init, init.dtype, (num_segments,), device)
-        out = init.to(torch.float32, copy=True).contiguous()
-    else:
-        out = torch.full((num_segments,), float("-inf"), dtype=torch.float32,
-                         device=device)
+        if init.dtype not in _KINDS:
+            init = init.to(torch.float32)
+        init = init.contiguous()
     if n == 0 and valid_mask is None:
+        if init is not None:
+            return init.to(torch.float32, copy=True)
+        return torch.full((num_segments,), float("-inf"), dtype=torch.float32,
+                          device=device)
+    out = torch.empty(num_segments, dtype=torch.float32, device=device)
+    if num_segments == 0:
         return out
 
     ptr = lambda t: None if t is None else t.data_ptr()
-    with torch.cuda.device(device):
-        err = _bind()(
-            ptr(seg_ids), ptr(vals), ptr(gate_ids),
-            0 if gate_ids is None else gate_value, n, num_segments, ptr(out),
-            ptr(valid_mask), float(retire),
-            torch.cuda.get_device_properties(device).multi_processor_count,
+    lib, launch = _bind()
+    with _on_device(device):
+        blocks = _setup(lib, device)
+        err = launch(
+            _KINDS[vals.dtype],
+            0 if init is None else _KINDS[init.dtype], ptr(seg_ids), ptr(vals),
+            ptr(gate_ids), 0 if gate_ids is None else gate_value, n, num_segments,
+            ptr(init), ptr(valid_mask), float(retire), ptr(out), blocks,
             torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:

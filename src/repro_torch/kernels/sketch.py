@@ -24,7 +24,7 @@ import ctypes
 import torch
 
 from . import build
-from .histogram import _check
+from ._device import _check, _on_device, _sm_count
 from .segreduce import segment_max_cuda
 
 __all__ = ["LAUNCHES", "HLL_LAUNCHES", "cms_update_cuda", "hll_update_cuda"]
@@ -77,12 +77,11 @@ def cms_update_cuda(
         return out
     col_ids = col_ids.contiguous()
     proposals = proposals.to(counts.dtype).contiguous()
-    with torch.cuda.device(device):
+    with _on_device(device):
         err = _bind()(
             int(counts.dtype == torch.int32), col_ids.data_ptr(),
             proposals.data_ptr(), depth, n, width, out.data_ptr(),
-            torch.cuda.get_device_properties(device).multi_processor_count,
-            torch.cuda.current_stream(device).cuda_stream,
+            _sm_count(device), torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"Count-Min kernel launch failed: cudaError {err}")

@@ -96,13 +96,15 @@ def _rand_floats(g, n, dev):
                                                    device=dev)], v)
 
 
-@pytest.mark.parametrize("num_segments", [1, 4096, 12288, 20000])  # shared + global
+# few and many segments, and rows from the HyperLogLog fold's 2^15 to many
+# times the segments
+@pytest.mark.parametrize("num_segments", [1, 4096, 12288, 12289, 20000])
+@pytest.mark.parametrize("n", [50_000, (1 << 17) + 1])
 @pytest.mark.parametrize("with_init,gated,masked",
                          list(itertools.product([False, True], repeat=3)))
-def test_segment_max_kernel_matches_plain(dev, num_segments, with_init, gated,
+def test_segment_max_kernel_matches_plain(dev, num_segments, n, with_init, gated,
                                           masked):
     g = torch.Generator(device=dev).manual_seed(num_segments + 7)
-    n = 50_000
     kw = {}
     if with_init:
         kw["init"] = _rand_floats(g, num_segments, dev)
@@ -136,6 +138,77 @@ def test_cms_kernel_matches_plain(dev, dtype, width, n):
     want = ops.cms_update(counts, cols, props, backend="torch")
     torch.cuda.synchronize()
     assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("num_segments", [4096, 12288])
+@pytest.mark.parametrize("n", [0, 1, 4095, 1 << 15, (1 << 17) + 1])
+def test_segment_max_int32_values_and_masked_rows(dev, num_segments, n):
+    """int32 values and init read as they are, masked segments that receive
+    rows: equal to the plain version."""
+    g = torch.Generator(device=dev).manual_seed(n + num_segments)
+    ids = _rand(g, -3, num_segments + 3, n, dev)
+    vals = _rand(g, -(1 << 30), 1 << 30, n, dev)
+    init = _rand(g, -(1 << 30), 1 << 30, num_segments, dev)
+    mask = _rand(g, 0, 2, num_segments, dev).bool()
+    mask[ids[(ids >= 0) & (ids < num_segments)][:8].long()] = False
+    kw = dict(init=init, valid_mask=mask, retire=-2.5)
+    want = ops.segmented_reduce(vals, ids, num_segments, op="max",
+                                backend="torch", **kw)
+    got = segmax_kernel.segment_max_cuda(vals, ids, num_segments, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+
+
+def _device_ops(fn):
+    """Names of the device operations (kernels, copies, fills) of one call,
+    from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("case", ["vxm", "hll", "gated, float init", "many rows, masked",
+                                  "molecule", "full_graph_sm", "bfloat16 rows",
+                                  "partitioned"])
+def test_scatter_wrappers_launch_one_kernel_per_call(dev, case):
+    """A call with rows, on inputs contiguous and of the kernel's types, is
+    one kernel and nothing else: no fill, no copy of init, no cast."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    if case in ("molecule", "full_graph_sm", "bfloat16 rows", "partitioned"):
+        n, d, segs = {"molecule": (8192, 64, 4096), "full_graph_sm": (10752, 1433, 2816),
+                      "bfloat16 rows": (5000, 33, 700),
+                      "partitioned": (200_000, 100, 300_000)}[case]
+        x = torch.randn(n, d, generator=g, device=dev)
+        if case == "bfloat16 rows":
+            x = x.to(torch.bfloat16)
+        ids = _rand(g, 0, segs + 2, n, dev)
+        names = _device_ops(lambda: segsum_kernel.segment_matmul_cuda(x, ids, segs))
+        assert len(names) == 1 and "segment_sum_tiles" in names[0], names
+        return
+    n, segs = {"vxm": (1 << 20, 2 << 20), "hll": (1 << 15, 4096),
+               "many rows, masked": ((1 << 17) + 1, 4096)
+               }.get(case, (50_000, 4096))
+    ids = _rand(g, -1, segs, n, dev)
+    vals = _rand_floats(g, n, dev)
+    kw = {}
+    if case == "vxm":
+        kw.update(valid_mask=_rand(g, 0, 4, segs, dev) != 0, retire=float("-inf"))
+    elif case == "hll":
+        vals = _rand(g, 1, 22, n, dev)
+        kw["init"] = _rand(g, 0, 20, segs, dev).float()
+    elif case == "gated, float init":
+        kw.update(gate_ids=_rand(g, 0, 3, n, dev), gate_value=1,
+                  init=_rand_floats(g, segs, dev))
+    else:
+        kw.update(valid_mask=_rand(g, 0, 2, segs, dev).bool(), retire=-1.0)
+    names = _device_ops(lambda: segmax_kernel.segment_max_cuda(vals, ids, segs, **kw))
+    assert len(names) == 1 and "segmax_cooperative" in names[0], names
 
 
 def test_auto_dispatch_launches_the_new_kernels(dev):
@@ -299,8 +372,12 @@ def test_attention_kernel_rejects_bad_inputs(dev):
         fa_kernel.flash_attention_cuda(q, k, k, window=0)
 
 
+# the GNN regimes, narrow and odd widths, segment tiles that straddle the
+# ids (d 33: 64-segment tiles; d 1,433 and 300: 32) and S of several tile
+# rows; each shape both ways, direct and partitioned
 @pytest.mark.parametrize("n,d,segs", [(8192, 64, 4096), (10752, 1433, 2816),
-                                      (5000, 7, 3), (1, 300, 1)])
+                                      (5000, 7, 3), (1, 300, 1), (20000, 33, 5000),
+                                      (3000, 1433, 300), (4000, 300, 1000)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_segment_sum_kernel_matches_plain(dev, n, d, segs, dtype):
     """Integer-valued rows: float sums exact in any order, so bit-equal."""
@@ -311,18 +388,61 @@ def test_segment_sum_kernel_matches_plain(dev, n, d, segs, dtype):
     got = ops.segment_reduce(x, ids, segs, backend="cuda")
     assert segsum_kernel.LAUNCHES == before + 1
     want = ops.segment_reduce(x, ids, segs, backend="torch")
-    torch.cuda.synchronize()
+    ts, tf, cap, parts = segsum_kernel.plan_segment_sum(
+        n, d, segs, torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert want.shape == (segs, d) and ts <= segsum_kernel.MAX_TILE_SEGMENTS
+    for partition in (False, True):
+        forced = segsum_kernel.segment_matmul_cuda(x, ids, segs, partition=partition)
+        torch.cuda.synchronize()
+        assert torch.equal(forced, want), partition
     assert got.dtype == torch.float32 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("partition", [False, True])
+def test_segment_sum_kernel_rounds_and_a_hub(dev, partition):
+    """50,000 ids, read in 4 rounds of at most 16,384 (each round's sums
+    added to the first's), and a hub segment that takes half the rows:
+    bit-equal on integer-valued rows, direct and partitioned."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    n, d, segs = 50_000, 70, 3000
+    ids = _rand(g, -2, segs + 2, n, dev)
+    ids[::2] = 1234
+    x = _rand(g, -4, 5, n * d, dev).reshape(n, d).float()
+    assert segsum_kernel.plan_segment_sum(n, d, segs, 132).cap < n
+    got = segsum_kernel.segment_matmul_cuda(x, ids, segs, partition=partition)
+    want = ops.segment_reduce(x, ids, segs, backend="torch")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n,d,segs", [(200_000, 100, 300_000), (300_000, 8, 5_000_000),
+                                      (150_000, 130, 50)])
+def test_segment_sum_kernel_partitioned_shapes(dev, n, d, segs):
+    """Shapes the planner partitions: many tiles (19,532 at 5,000,000
+    segments, above one counting pass of 16,384 tiles), and few segments
+    with many rows; bit-equal on integer-valued rows, one launch."""
+    g = torch.Generator(device=dev).manual_seed(n + segs)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert segsum_kernel.plan_segment_sum(n, d, segs, sms).parts > 0
+    ids = _rand(g, -3, segs + 3, n, dev)
+    x = _rand(g, -4, 5, n * d, dev).reshape(n, d).float()
+    before = segsum_kernel.LAUNCHES
+    got = ops.segment_reduce(x, ids, segs, backend="cuda")
+    assert segsum_kernel.LAUNCHES == before + 1
+    want = ops.segment_reduce(x, ids, segs, backend="torch")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def test_segment_sum_kernel_random_floats_and_edges(dev):
     g = torch.Generator(device=dev).manual_seed(3)
     ids = _rand(g, 0, 100, 20000, dev)
     x = torch.randn(20000, 33, generator=g, device=dev)
-    got = ops.segment_reduce(x, ids, 100, backend="cuda")
     want = ops.segment_reduce(x, ids, 100, backend="torch")
-    # sums of about 200 terms of size 1, in another order
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    for partition in (None, False, True):
+        got = segsum_kernel.segment_matmul_cuda(x, ids, 100, partition=partition)
+        # sums of about 200 terms of size 1, in another order
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
     empty = torch.zeros(0, 4, device=dev)
     none = torch.zeros(0, dtype=torch.int32, device=dev)
     assert torch.equal(ops.segment_reduce(empty, none, 3, backend="cuda"),

@@ -2,8 +2,11 @@
 Count-Min and the HyperLogLog fold: each plain PyTorch version against the
 reference's plain version (``repro.kernels.ref`` / the XLA path) and against
 the Pallas kernel body run in interpret mode, for every epilogue
-combination; plus the dispatch contract.  Sums take integer-valued inputs
-and max is exact in any order, so every comparison is bit-equal.  The CUDA
+combination; plus the dispatch contract, and ``ref_segment_max_blocked``,
+the segment-max kernel's decomposition (the mask applied at the seed, the
+rows folded one grid-stride step at a time).  Sums take
+integer-valued inputs and max is exact in any order, so every comparison
+is bit-equal.  The CUDA
 kernels themselves are held against the plain versions on the card in
 tests/test_torch_cuda.py and chip_smoke.py."""
 import itertools
@@ -137,9 +140,9 @@ def test_cuda_backend_refuses_cpu_tensors():
         ops.histogram(torch.zeros(4, dtype=torch.int32), 3, backend="xla")
 
 
-def test_segment_max_is_not_ported_yet():
-    """The max monoid is ported: ``op="max"`` takes the plain version for a
-    CPU tensor under ``auto`` and ``torch``, and ``cuda`` refuses it."""
+def test_segment_max_runs_plain_on_cpu_and_cuda_backend_refuses():
+    """``op="max"`` takes the plain version for a CPU tensor under ``auto``
+    and ``torch``, and the ``cuda`` backend refuses a CPU tensor."""
     vals, seg = torch.tensor([1.0, 5.0, -2.0]), torch.tensor([0, 0, 1], dtype=torch.int32)
     for backend in ("auto", "torch"):
         got = ops.segmented_reduce(vals, seg, 3, op="max", backend=backend)
@@ -229,6 +232,61 @@ def test_segment_max_refuses_out_dtype_and_unknown_ops():
         ops.segmented_reduce(vals, seg, 2, op="max", out_dtype=torch.int32)
     with pytest.raises(ValueError, match="unknown segmented-reduce op"):
         ops.segmented_reduce(vals, seg, 2, op="min")
+
+
+# --- the segment-max kernel's decomposition, mirrored on the CPU ---------------
+
+@pytest.mark.parametrize("blocks,block_rows", [(1, 256), (16, 1024), (8, 7), (3, 1)])
+@pytest.mark.parametrize("with_init,gated,masked", COMBOS)
+def test_blocked_mirror_matches_plain_and_pallas(blocks, block_rows, with_init,
+                                                 gated, masked):
+    """The mask applied at the seed, the rows folded one grid-stride step
+    at a time: bit-equal to the plain version and the Pallas kernel (max is
+    exact in any order)."""
+    x = _max_inputs(60 + 4 * with_init + 2 * gated + masked)
+    kw = {"init": x["init"]} if with_init else {}
+    if gated:
+        kw.update(gate_ids=x["gate"], gate_value=2)
+    if masked:
+        kw.update(valid_mask=x["mask"], retire=-3.5)
+    vals, ids = torch.from_numpy(x["vals"]), torch.from_numpy(x["ids"])
+    got = ref.ref_segment_max_blocked(vals, ids, BINS, blocks=blocks,
+                                      block_rows=block_rows, **_torch_kw(kw))
+    if masked:  # masked segments that receive rows still take retire
+        hit = np.isin(np.arange(BINS), x["ids"])
+        assert (hit & ~x["mask"]).any()
+    _assert_same(got, np.asarray(ref.ref_segment_max(vals, ids, BINS,
+                                                     **_torch_kw(kw))))
+    _assert_same(got, segment_max_pallas(jnp.asarray(x["vals"]),
+                                         jnp.asarray(x["ids"]), BINS,
+                                         interpret=True, **_jax_kw(kw)))
+
+
+@pytest.mark.parametrize("case", ["int32 values and init", "all ids out of range",
+                                  "no rows", "no rows, masked"])
+def test_blocked_mirror_edge_cases(case):
+    rng = np.random.default_rng(70)
+    vals = rng.integers(-(1 << 26), 1 << 26, N).astype(np.int32)
+    ids = rng.integers(-3, BINS + 3, N).astype(np.int32)
+    init = rng.integers(-50, 50, BINS).astype(np.int32)
+    mask = rng.random(BINS) < 0.6
+    kw = dict(init=init)
+    if case == "all ids out of range":
+        ids = np.where(ids < 0, ids, ids + BINS + 3).astype(np.int32)
+        kw["valid_mask"] = mask
+    elif case.startswith("no rows"):
+        vals, ids = vals[:0], ids[:0]
+        if case.endswith("masked"):
+            kw.update(valid_mask=mask, retire=7.0)
+    got = ref.ref_segment_max_blocked(torch.from_numpy(vals), torch.from_numpy(ids),
+                                      BINS, blocks=4, block_rows=16, **_torch_kw(kw))
+    want = ref.ref_segment_max(torch.from_numpy(vals), torch.from_numpy(ids), BINS,
+                               **_torch_kw(kw))
+    _assert_same(got, want.numpy())
+    jax_want = (jax_ref.ref_segmented_reduce if not len(ids) else
+                lambda *a, **k: segment_max_pallas(*a[:3], interpret=True, **k))
+    _assert_same(got, jax_want(jnp.asarray(vals), jnp.asarray(ids), BINS,
+                               *(("max",) if not len(ids) else ()), **_jax_kw(kw)))
 
 
 # --- Count-Min and HyperLogLog -------------------------------------------------

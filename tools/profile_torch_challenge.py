@@ -18,12 +18,15 @@ them), 20 back-to-back calls of one kernel wrapper or of the one PyTorch
 call that computes the same function: ``segmax_vxm`` (2^20 float32 values
 into 2^21 segments with ``valid_mask``), ``hll_fold`` (2^15 rows into 4,096
 registers with ``init``) and ``cms_fold`` (int32 (4, 4096) cells, 2^15
-proposals), each with a ``_library`` twin (``scatter_reduce_``, ``amax``;
-the HLL and Count-Min twins build their indices and casts inside the call,
-as the wrappers do),
-and ``segment_reduce`` (full_graph_sm's 10,752 x 1,433 float32 messages
-into 2,816 segments) with its twin (``index_add_``).  Their device events
-split each wrapper's device time from its host work.
+proposals), each with a ``_library`` twin (``scatter_reduce_``, ``amax``),
+``segment_reduce`` (full_graph_sm's 10,752 x 1,433 float32 messages
+into 2,816 segments, the kernel's direct launch) and ``segment_reduce_lg``
+(minibatch_lg's 168,960 x 602 into 170,496, its partitioned launch), each
+with a twin (``index_add_``); every twin builds its
+indices, casts, fills and masks inside the call, as the wrappers do.  Their
+device events split each wrapper's device time from its host work, and
+their records count the device kernels of one call (``kernels_per_call``:
+one for each of the port's wrappers).
 
 LM serving, granite-8b at full width with ``--layers`` layers (default all
 36), bf16, weights drawn on the card, four requests: ``lm_prefill`` (2,048
@@ -66,7 +69,7 @@ def _busy_us(intervals):
     return busy
 
 
-def profile_phase(name, fn, reps, top):
+def profile_phase(name, fn, reps, top, calls=None):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -96,7 +99,7 @@ def profile_phase(name, fn, reps, top):
     for k, (ms, _) in by_name.items():
         fam = _family(k)
         families[fam] = families.get(fam, 0.0) + ms
-    return {
+    rec = {
         "phase": name,
         "wall_ms_median": statistics.median(walls),
         "wall_ms": walls,
@@ -108,6 +111,11 @@ def profile_phase(name, fn, reps, top):
                           for k, v in ranked],
         "device_ms_by_family": families,
     }
+    if calls:  # a kernel phase: CALLS calls of one wrapper or library call
+        rec["kernels_per_call"] = {k[:90]: cnt / calls
+                                   for k, (_, cnt) in by_name.items()}
+        rec["device_events_per_call"] = len(dev) / calls
+    return rec
 
 
 def _family(kernel_name: str) -> str:
@@ -115,7 +123,8 @@ def _family(kernel_name: str) -> str:
     ``nvjet``, ``cutlass``, ``xmma``); everything else."""
     name = kernel_name.lower()
     for fam, keys in (("attention kernel", ("fa_prefill", "fa_decode", "fa_fwd")),
-                      ("segment-sum kernel", ("segment_sum_rows",)),
+                      ("segment-sum kernel", ("segment_sum_tiles",)),
+                      ("segment-max kernel", ("segmax_",)),
                       ("matmul", ("gemm", "nvjet", "cutlass", "xmma"))):
         if any(key in name for key in keys):
             return fam
@@ -125,7 +134,7 @@ def _family(kernel_name: str) -> str:
 TABLE_PHASES = ("build_device", "anonymize", "analyze", "analyze_fused", "bfs",
                 "components", "pagerank", "triangles", "sketch_batch")
 KERNEL_PHASES = tuple(f"{k}{s}" for k in ("segmax_vxm", "hll_fold", "cms_fold",
-                                           "segment_reduce")
+                                           "segment_reduce", "segment_reduce_lg")
                       for s in ("", "_library"))
 LM_PHASES = ("lm_prefill", "lm_decode")
 PHASES = TABLE_PHASES + KERNEL_PHASES + LM_PHASES
@@ -148,7 +157,6 @@ def kernel_phases(dev):
     vals = torch.randn(n, generator=g, device=dev)
     seg = torch.where(rand(0, 8, n) == 0, -1, rand(0, segs, n))
     mask = rand(0, 4, segs) != 0
-    spill = torch.where(seg >= 0, seg, segs).long()
     m, rows = 4096, 1 << 15
     regs = rand(0, 20, m).float()
     reg_ids = torch.where(rand(0, 16, rows) == 0, -1, rand(0, m, rows))
@@ -164,17 +172,22 @@ def kernel_phases(dev):
     recv = rand(0, 2708, edges)
     recv[10556:] = nodes
     msgs = torch.randn(edges, feats, generator=g, device=dev)
-    recv_spill = recv.long()
+    # minibatch_lg: 168,960 edges x 602 features into 170,496 node slots
+    lg_edges, lg_feats, lg_nodes = 168960, 602, 170496
+    lg_recv = rand(0, 169984, lg_edges)
+    lg_msgs = torch.randn(lg_edges, lg_feats, generator=g, device=dev)
     one = {
         "segmax_vxm": lambda: segmented_reduce(
             vals, seg, segs, op="max", valid_mask=mask, retire=ninf,
             backend="cuda"),
+        # the library twins compute what the wrappers compute, as
+        # chip_smoke.py's yardsticks do: spill and flat indices, casts, fills,
+        # masks and the copy of the registers or cells inside the call
         "segmax_vxm_library": lambda: torch.full(
-            (segs + 1,), ninf, device=dev).scatter_reduce_(0, spill, vals, "amax"),
+            (segs + 1,), ninf, device=dev).scatter_reduce_(
+            0, torch.where(seg >= 0, seg, segs).long(), vals, "amax"
+        )[:segs].masked_fill(~mask, ninf),
         "hll_fold": lambda: hll_update(regs, reg_ids, rhos, backend="cuda"),
-        # the two library twins below compute what the wrappers compute, as
-        # chip_smoke.py's yardsticks do: spill and flat indices, casts and
-        # the copy of the registers or cells inside the call
         "hll_fold_library": lambda: torch.cat(
             [regs, regs.new_full((1,), ninf)]).scatter_reduce_(
             0, torch.where(reg_ids >= 0, reg_ids, m).long(), rhos.float(),
@@ -186,7 +199,14 @@ def kernel_phases(dev):
             props.expand(depth, rows).reshape(-1), "amax")[:-1].view(depth, m),
         "segment_reduce": lambda: segment_reduce(msgs, recv, nodes, backend="cuda"),
         "segment_reduce_library": lambda: torch.zeros(
-            nodes + 1, feats, device=dev).index_add_(0, recv_spill, msgs),
+            nodes + 1, feats, device=dev).index_add_(
+            0, torch.where(recv < nodes, recv, nodes).long(), msgs)[:nodes],
+        "segment_reduce_lg": lambda: segment_reduce(lg_msgs, lg_recv, lg_nodes,
+                                                    backend="cuda"),
+        "segment_reduce_lg_library": lambda: torch.zeros(
+            lg_nodes + 1, lg_feats, device=dev).index_add_(
+            0, torch.where(lg_recv < lg_nodes, lg_recv, lg_nodes).long(),
+            lg_msgs)[:lg_nodes],
     }
 
     def repeat(fn):
@@ -302,8 +322,9 @@ def main(argv=None) -> int:
     if set(LM_PHASES) & set(args.phases):
         phases.update(lm_phases(args, dev))
     for name in args.phases:
-        print(json.dumps(profile_phase(name, phases[name], args.reps, args.top)),
-              flush=True)
+        calls = CALLS if name in KERNEL_PHASES else None
+        print(json.dumps(profile_phase(name, phases[name], args.reps, args.top,
+                                       calls)), flush=True)
     return 0
 
 
