@@ -11,13 +11,16 @@ Phases (any failure exits non-zero):
    CUDA sources under ``src/repro_torch/kernels/csrc/`` in parallel (one
    ``nvcc`` each) and print each ``-Xptxas -v`` report.
 2. Kernels against their plain versions on the card, at the main path's
-   shapes, each shape timed by events and on the device alone (the host's
-   work left out) beside the plain version, one PyTorch call that computes
-   the same function from the same inputs (its index casts, spill slots,
-   fills and masks inside the timed call; checked bit-equal where the sums
-   are exact) and the bytes bound:
-   * histogram: 2^24 rows into 8,192 float bins and a gated int32 sum into
-     2^24 + 1 segments (bit-equal), the ``init``/``valid_mask``/``retire``
+   shapes, each shape timed by events, on the device alone (the host's
+   work left out) and on the host alone (the wrapper's work), its device
+   kernels a call counted by ``torch.profiler``, beside the plain version,
+   one PyTorch call that computes the same function from the same inputs
+   (its index casts, spill slots, fills and masks inside the timed call;
+   checked bit-equal where the sums are exact) and the bytes bound:
+   * histogram: 2^24 rows into 8,192 float bins, uniform (a) and the
+     activity ids of an RMAT capture (a-rmat, hot bins), and a gated int32
+     sum into 2^24 + 1 segments (b) (bit-equal; ``bincount`` and
+     ``index_add_`` beside each), the ``init``/``valid_mask``/``retire``
      epilogue, ``n == 0``, out-of-range ids and random float weights (to a
      stated tolerance); PageRank's plus-times vxm, 2^20 float32 products
      into 2^21 vertex slots with ``valid_mask``/``retire`` (to the same
@@ -28,7 +31,9 @@ Phases (any failure exits non-zero):
      4,096 registers with ``init``, and the gate, ``n == 0``, out-of-range
      ids, ±inf, -0.0 and random floats: all bit-equal;
    * Count-Min: int32 (4, 4096) cells with 2^15 proposals and counts past
-     2^24, float32 cells, all proposals masked, ``n == 0``: all bit-equal.
+     2^24 (both kernel paths, cluster and cooperative, timed), float32
+     cells (both paths), all proposals masked, ``n == 0``, rows of 100,000
+     cells (the cooperative path): all bit-equal.
 3. The main path at scale 24: ``run_challenge`` with ``method="hash"``, with
    the defaults and with ``fused_epilogue=True``, each checked against the
    NumPy oracle, the two checked identical, the histogram kernel's launches
@@ -250,13 +255,90 @@ def device_time_ms(fn, may_sync: bool = False):
     raise AssertionError("the host did not get ahead of the device")
 
 
+def host_time_ms(fn) -> float:
+    """Mean host time of one call: ``time.perf_counter_ns`` around REPS
+    calls queued behind a sleep kernel, so that no call waits for the
+    device: the wrapper's checks, allocations and launch alone.  Checked
+    as in ``device_time_ms``: the device must not reach the calls before
+    the host has queued them all."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    marker = torch.cuda.Event()
+    for cycles in (10 ** 8, 10 ** 9):
+        torch.cuda._sleep(cycles)
+        marker.record()
+        t0 = time.perf_counter_ns()
+        for _ in range(REPS):
+            fn()
+        host = (time.perf_counter_ns() - t0) / REPS / 1e6
+        ahead = not marker.query()
+        torch.cuda.synchronize()
+        if ahead:
+            return host
+    raise AssertionError("the host did not get ahead of the device")
+
+
+def device_ops(fn) -> list:
+    """Names of the device operations (kernels, copies, fills) of one call
+    of ``fn`` after a warm-up call, from ``torch.profiler``: the longest
+    list over three sessions.  A session after the first in a process
+    may drop device events that come right after its start, never add
+    any; each session launches a marker kernel and pauses first."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    longest = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+                 and "spin_kernel" not in e.name]
+        longest = max(longest, names, key=len)
+    return longest
+
+
 def timings(kern, plain, library) -> dict:
-    """A kernel call's event and device-only times beside its plain
-    version's and its library yardstick's (``library`` builds whatever
-    index, cast or fill the kernel's function needs inside the call)."""
+    """A kernel call's event, device-only and host-only times beside its
+    plain version's and its library yardstick's (``library`` builds
+    whatever index, cast or fill the kernel's function needs inside the
+    call)."""
     return {"ms": time_ms(kern), "plain_ms": time_ms(plain),
             "library_ms": time_ms(library), "device_ms": device_time_ms(kern),
-            "library_device_ms": device_time_ms(library, may_sync=True)}
+            "host_ms": host_time_ms(kern),
+            "library_device_ms": device_time_ms(library, may_sync=True),
+            "kernels_per_call": len(device_ops(kern))}
+
+
+def yardstick(name, library) -> dict:
+    """A second library call's times, by events and on the device alone."""
+    return {f"{name}_ms": time_ms(library),
+            f"{name}_device_ms": device_time_ms(library, may_sync=True)}
+
+
+def rmat_activity_ids(dev):
+    """The main path's activity-histogram ids on an RMAT capture made by
+    the port's ``data/rmat.py`` at SCALE: rows in capture order, cut into
+    N_WINDOWS equal windows, sources hashed to IP_BINS bins as
+    ``pipeline._window_activity`` hashes them (``mix32(src) % ip_bins``).
+    RMAT's hub sources make hot bins, which uniform ids hide."""
+    import torch
+    from repro_torch.core.ops import mix32
+    from repro_torch.data.rmat import rmat_edges
+
+    n = 1 << SCALE
+    src, _ = rmat_edges(SCALE, n, seed=SEED)
+    src = torch.from_numpy(src.astype("int64")).to(dev)
+    win = torch.arange(n, device=dev) * N_WINDOWS // n
+    return (win * IP_BINS + mix32(src) % IP_BINS).to(torch.int32)
 
 
 def same(name, got, want):
@@ -292,13 +374,38 @@ def check_histogram(dev):
     plain = lambda: histogram(ids, bins_a, w, backend="torch")
     same(f"(a) 2^{SCALE} rows -> {bins_a} float bins", kern(), plain())
     # each library yardstick computes the kernel's function from the
-    # kernel's inputs: its index casts, spill slots and masks are timed too
+    # kernel's inputs: its index casts, spill slots and masks are timed too;
+    # bincount reads its ids' maximum on the host, so index_add_ stands
+    # beside it with a device time
+    spill = lambda i, bins, ok: torch.where(ok, i, bins).long()
+    add_a = lambda i: torch.zeros(bins_a + 1, device=dev).index_add_(
+        0, spill(i, bins_a, (i >= 0) & (i < bins_a)), w)[:bins_a]
+    same("(a) index_add_ computes the same bins", add_a(ids), plain())
     shapes.append({
         "case": f"a: ids int32 (2^{SCALE},), weights float32, {bins_a} bins",
         **timings(kern, plain,
                   lambda: torch.bincount(ids.long(), w, minlength=bins_a)),
+        **yardstick("index_add", lambda: add_a(ids)),
         "bound_ms": (8 * n + 4 * bins_a) / HBM_BYTES_PER_S * 1e3,
     })
+
+    # (a-rmat) the same call on the activity ids of an RMAT capture: hot bins
+    rmat_ids = rmat_activity_ids(dev)
+    kern = lambda: histogram(rmat_ids, bins_a, w, backend="cuda")
+    plain = lambda: histogram(rmat_ids, bins_a, w, backend="torch")
+    same(f"(a-rmat) 2^{SCALE} RMAT activity ids -> {bins_a} float bins",
+         kern(), plain())
+    hot = torch.bincount(rmat_ids.long(), minlength=bins_a)
+    shapes.append({
+        "case": f"a-rmat: RMAT activity ids int32 (2^{SCALE},), weights float32, "
+                f"{bins_a} bins",
+        **timings(kern, plain,
+                  lambda: torch.bincount(rmat_ids.long(), w, minlength=bins_a)),
+        **yardstick("index_add", lambda: add_a(rmat_ids)),
+        "bound_ms": (8 * n + 4 * bins_a) / HBM_BYTES_PER_S * 1e3,
+        "hottest_bin_rows": int(hot.max()), "mean_bin_rows": n / bins_a,
+    })
+    del rmat_ids, hot
 
     # (b) the fused path's gated int32 sum into capacity + 1 segments: sorted
     # segment ids (a plan's segmentation), window ids as the gate
@@ -311,11 +418,15 @@ def check_histogram(dev):
     plain = lambda: segmented_reduce(wi, seg, segs, backend="torch", **kw)
     same(f"(b) gated int32 sum, 2^{SCALE} rows -> 2^{SCALE}+1 segments",
          kern(), plain())
+    add_b = lambda: torch.zeros(segs + 1, dtype=torch.int32, device=dev).index_add_(
+        0, spill(seg, segs, gate == 3), wi)[:segs]
+    same("(b) index_add_ computes the same sums", add_b(), plain())
     shapes.append({
         "case": f"b: seg int32 (2^{SCALE},), gate int32, weights int32, "
                 f"2^{SCALE}+1 segments",
         **timings(kern, plain, lambda: torch.bincount(
             seg.long(), torch.where(gate == 3, wi, 0).float(), minlength=segs)),
+        **yardstick("index_add", add_b),
         "bound_ms": (12 * n + 4 * segs) / HBM_BYTES_PER_S * 1e3,
     })
 
@@ -525,6 +636,7 @@ def check_cms(dev):
     Returns (max_abs_err, timed shapes)."""
     import torch
     from repro_torch.kernels.ops import cms_update
+    from repro_torch.kernels.sketch import cms_update_cuda
 
     g = torch.Generator(device=dev).manual_seed(2)
     rand = lambda lo, hi, *shape: torch.randint(lo, hi, shape, generator=g,
@@ -552,23 +664,39 @@ def check_cms(dev):
                                      "amax")[:-1].view(depth, width)
 
     same("(j) the library yardstick computes the same cells", library(), plain())
+    # both of the kernel's paths: the default (the cluster) and the other
+    paths = {}
+    for path in ("cluster", "cooperative"):
+        call = (lambda p: lambda: cms_update_cuda(counts, cols, props, path=p))(path)
+        same(f"(j) {path} path", call(), plain())
+        paths.update({f"{path}_ms": time_ms(call),
+                      f"{path}_device_ms": device_time_ms(call)})
     shapes.append({
         "case": "j: cells int32 (4, 4096), col ids int32 (4, 2^15), "
                 "proposals int32 (2^15,)",
-        **timings(kern, plain, library),
+        **timings(kern, plain, library), **paths,
         "bound_ms": (4 * depth * n + 4 * n + 8 * depth * width)
         / HBM_BYTES_PER_S * 1e3,
     })
-    # (k) float32 cells; (l) every proposal masked; (m) no proposals
+    # (k) float32 cells, both paths; (l) every proposal masked; (m) no
+    # proposals; (j-wide) rows wider than the cluster path takes (the
+    # cooperative path)
     fcounts = _floats(g, depth * width, dev).reshape(depth, width)
     fprops = _floats(g, n, dev)
-    same("(k) float32 cells", cms_update(fcounts, cols, fprops, backend="cuda"),
-         cms_update(fcounts, cols, fprops, backend="torch"))
+    for path in ("cluster", "cooperative"):
+        same(f"(k) float32 cells, {path} path",
+             cms_update_cuda(fcounts, cols, fprops, path=path),
+             cms_update(fcounts, cols, fprops, backend="torch"))
     masked = torch.full_like(cols, -1)
     same("(l) all proposals masked", cms_update(counts, masked, props, backend="cuda"),
          counts)
     none = torch.empty((depth, 0), dtype=torch.int32, device=dev)
     same("(m) n == 0", cms_update(counts, none, props[:0], backend="cuda"), counts)
+    wide = rand(0, 1 << 26, depth, 100_000)
+    wcols = rand(-1, 100_003, depth, n)
+    same("(j-wide) rows of 100,000 cells (the cooperative path)",
+         cms_update(wide, wcols, props, backend="cuda"),
+         cms_update(wide, wcols, props, backend="torch"))
     return 0.0, shapes
 
 

@@ -1,5 +1,6 @@
 """Device plumbing shared by the kernel wrappers: input checks, the card's
-SM count read once per device, and the device switch for a launch."""
+SM count read once per device, the device switch and the stream for a
+launch."""
 from __future__ import annotations
 
 import contextlib
@@ -26,6 +27,17 @@ def _on_device(device: torch.device):
     if device.index == torch.cuda.current_device():
         return contextlib.nullcontext()
     return torch.cuda.device(device)
+
+
+def _stream(device: torch.device) -> int:
+    """The current stream of ``device`` as the kernels take it: the raw
+    handle, read without building a ``torch.cuda.Stream``."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def _dense(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with a contiguous layout, copied only when it has none."""
+    return x if x.is_contiguous() else x.contiguous()
 
 
 def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape, device):

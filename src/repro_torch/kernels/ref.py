@@ -11,8 +11,9 @@ from typing import Optional
 
 import torch
 
-__all__ = ["ref_histogram", "ref_segment_max", "ref_segment_max_blocked",
-           "ref_cms_update", "ref_hll_update", "ref_segment_matmul",
+__all__ = ["ref_histogram", "ref_histogram_blocked", "ref_segment_max",
+           "ref_segment_max_blocked", "ref_cms_update", "ref_cms_update_clustered",
+           "ref_hll_update", "ref_segment_matmul",
            "ref_segment_matmul_tiled", "ref_attention", "ref_attention_split"]
 
 
@@ -51,6 +52,75 @@ def ref_histogram(
         out = out.masked_fill(~valid_mask, retire)
     return out
 
+
+def ref_histogram_blocked(
+    ids: torch.Tensor,
+    num_bins: int,
+    weights: Optional[torch.Tensor] = None,
+    *,
+    init: Optional[torch.Tensor] = None,
+    gate_ids: Optional[torch.Tensor] = None,
+    gate_value=None,
+    valid_mask: Optional[torch.Tensor] = None,
+    retire=0.0,
+    out_dtype: Optional[torch.dtype] = None,
+    private: bool,
+    blocks: int,
+    threads: int = 1024,
+    rows_in_flight: int = 4,
+) -> torch.Tensor:
+    """:func:`ref_histogram` by the decomposition of the CUDA kernel.  Rows
+    go to warps in tiles of ``32 * rows_in_flight``, the tiles dealt round
+    the ``blocks`` x ``threads // 32`` warps of the grid.  ``private``: each
+    block sums its rows into its own copy of the bins; the copies are
+    summed bin by bin in the kernel's fixed order (copy group g of G =
+    min(warps a block, blocks) adds copies g, g + G, ... in turn, then the
+    G partial sums are added in order); then ``init`` is added and masked
+    bins take ``retire``.  Else (the scatter): a seed of ``init`` (or 0),
+    ``retire`` where masked, then each warp round of 32 adjacent rows adds
+    each run of equal kept ids whose bin is valid as one sum.  For tests;
+    no path runs it.
+    """
+    acc = torch.float32 if out_dtype is None else out_dtype
+    dev = ids.device
+    n = ids.shape[0]
+    w = (torch.ones(n, dtype=acc, device=dev) if weights is None
+         else weights.to(acc))
+    ok = (ids >= 0) & (ids < num_bins)
+    if gate_ids is not None:
+        ok = ok & (gate_ids == gate_value)
+    valid = (torch.ones(num_bins, dtype=torch.bool, device=dev)
+             if valid_mask is None else valid_mask)
+    base = (torch.zeros(num_bins, dtype=acc, device=dev) if init is None
+            else init.to(acc) + torch.zeros((), dtype=acc, device=dev))
+    rows = torch.arange(n, device=dev)
+    warps = threads // 32
+    block = (rows // (32 * rows_in_flight)) % (blocks * warps) // warps
+    if private:
+        copies = torch.zeros(blocks, num_bins + 1, dtype=acc, device=dev).index_put_(
+            (block, torch.where(ok, ids, num_bins).long()), torch.where(ok, w, 0),
+            accumulate=True)[:, :num_bins]
+        groups = min(warps, blocks)
+        partial = []
+        for g in range(groups):
+            s = torch.zeros(num_bins, dtype=acc, device=dev)
+            for k in range(g, blocks, groups):
+                s = s + copies[k]
+            partial.append(s)
+        total = partial[0]
+        for s in partial[1:]:
+            total = total + s
+        out = total if init is None else init.to(acc) + total
+        return torch.where(valid, out, torch.tensor(retire, dtype=acc, device=dev))
+    out = torch.where(valid, base, torch.tensor(retire, dtype=acc, device=dev))
+    ok = ok & valid[torch.where(ok, ids, 0).long()]
+    kept = torch.where(ok, ids, -1)
+    head = (rows % 32 == 0) | (kept != torch.roll(kept, 1))
+    run = torch.cumsum(head.to(torch.int64), 0) - 1
+    run_sum = torch.zeros(int(head.sum()), dtype=acc, device=dev).index_add_(
+        0, run, torch.where(ok, w, 0))
+    run_id = kept[head]
+    return out.index_add_(0, run_id[run_id >= 0].long(), run_sum[run_id >= 0])
 
 
 def ref_segment_max(
@@ -159,6 +229,50 @@ def ref_cms_update(
         0, fused.reshape(-1).long(), torch.where(ok, props, sentinel).reshape(-1),
         reduce="amax")[:depth * width].reshape(depth, width)
     return torch.maximum(counts, upd)
+
+
+def ref_cms_update_clustered(
+    counts: torch.Tensor,
+    col_ids: torch.Tensor,
+    proposals: torch.Tensor,
+    *,
+    cluster: int = 8,
+) -> torch.Tensor:
+    """:func:`ref_cms_update` by the decomposition of the CUDA kernel's
+    cluster path: a depth row's proposals cut into ``cluster`` equal
+    shares, each maxed into its own copy of the row's cells (the cell
+    type's minimum where nothing lands), then each cell stored once, as the
+    max of the running count and the ``cluster`` copies, by the block that
+    owns its column (``ceil(width / cluster)`` columns a block).  Raises if
+    a cell is stored other than once.  For tests; no path runs it.
+    """
+    depth, width = counts.shape
+    n = col_ids.shape[1]
+    dtype = counts.dtype
+    low = float("-inf") if dtype.is_floating_point else torch.iinfo(dtype).min
+    props = proposals.to(dtype)
+    share = -(-n // cluster)
+    cols = -(-width // cluster)
+    out = torch.empty_like(counts)
+    stored = torch.zeros(depth, width, dtype=torch.int32)
+    for r in range(depth):
+        copies = []
+        for k in range(cluster):
+            ids = col_ids[r, k * share:(k + 1) * share]
+            ok = (ids >= 0) & (ids < width)
+            copies.append(torch.full((width + 1,), low, dtype=dtype).scatter_reduce_(
+                0, torch.where(ok, ids, width).long(),
+                props[k * share:(k + 1) * share], reduce="amax")[:width])
+        for k in range(cluster):  # block k's columns
+            c = slice(k * cols, (k + 1) * cols)
+            m = counts[r, c]
+            for copy in copies:
+                m = torch.maximum(m, copy[c])
+            out[r, c] = m
+            stored[r, c] += 1
+    if not bool((stored == 1).all()):
+        raise AssertionError("a cell stored other than once")
+    return out
 
 
 def ref_hll_update(

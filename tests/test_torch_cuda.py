@@ -10,6 +10,7 @@ marker and skip without a card.  Run them on a machine with one:
 This file imports torch and the port only (the card's machine has no JAX).
 """
 import itertools
+import time
 
 import pytest
 import torch
@@ -35,7 +36,10 @@ def _rand(g, lo, hi, n, dev):
     return torch.randint(lo, hi, (n,), generator=g, device=dev, dtype=torch.int32)
 
 
-@pytest.mark.parametrize("num_bins", [1, 1000, 12288, 20000])  # shared + global
+# 50,000 rows: up to 12,288 float bins (48 KB) the private path, above it
+# the scatter path (histogram.plan_histogram)
+@pytest.mark.parametrize("num_bins", [1, 1000, 12288, 12289, 20000],
+                         ids=lambda b: f"histogram-{b}-bins")
 @pytest.mark.parametrize("with_init,gated,masked",
                          list(itertools.product([False, True], repeat=3)))
 @pytest.mark.parametrize("out_dtype", [None, torch.int32])
@@ -57,6 +61,43 @@ def test_kernel_matches_plain(dev, num_bins, with_init, gated, masked, out_dtype
     want = ops.segmented_reduce(w, ids, num_bins, backend="torch", **kw)
     torch.cuda.synchronize()
     assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("num_bins", [8192, 1 << 20])  # private, scatter
+def test_histogram_int32_sums_past_2_24(dev, num_bins):
+    """2^25 rows of weight 1, half of them on one bin: int32 sums exact past
+    float32's 2^24, on both paths."""
+    n = 1 << 25
+    ids = torch.randint(0, num_bins, (n,), device=dev, dtype=torch.int32)
+    ids[::2] = 3
+    w = torch.ones(n, dtype=torch.int32, device=dev)
+    private = num_bins == 8192
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert hist_kernel.plan_histogram(n, num_bins, 2 * sms, 2 * sms).private == private
+    got = hist_kernel.histogram_cuda(ids, num_bins, w, out_dtype=torch.int32)
+    want = ops.segmented_reduce(w, ids, num_bins, out_dtype=torch.int32, backend="torch")
+    torch.cuda.synchronize()
+    assert int(got[3]) > 1 << 24 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 33, 200, 4095])
+@pytest.mark.parametrize("num_bins", [64, 5000])
+def test_histogram_few_rows_and_sorted_runs(dev, n, num_bins):
+    """Rows fewer than the bins (the scatter path), and as many (private),
+    sorted into runs longer than a warp round, masked, gated, with init:
+    equal to the plain version."""
+    g = torch.Generator(device=dev).manual_seed(n + num_bins)
+    for rows in (n, max(n, num_bins)):
+        ids = torch.sort(_rand(g, -3, num_bins // 50 + 2, rows, dev))[0]
+        kw = dict(init=_rand(g, -5, 5, num_bins, dev),
+                  gate_ids=_rand(g, 0, 2, rows, dev), gate_value=1,
+                  valid_mask=_rand(g, 0, 4, num_bins, dev) != 0, retire=-9,
+                  out_dtype=torch.int32)
+        w = _rand(g, 0, 4, rows, dev)
+        got = hist_kernel.histogram_cuda(ids, num_bins, w, **kw)
+        want = ops.segmented_reduce(w, ids, num_bins, backend="torch", **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), rows
 
 
 def test_auto_dispatch_launches_the_kernel(dev):
@@ -125,19 +166,41 @@ def test_segment_max_kernel_matches_plain(dev, num_segments, n, with_init, gated
     assert got.dtype == torch.float32 and torch.equal(got, want)
 
 
+@pytest.mark.parametrize("path", [None, "cluster", "cooperative"])
 @pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
-@pytest.mark.parametrize("width", [4096, 20000])  # the default width and a wider one
+# the default width, one that is no multiple of the cluster, a wider one
+@pytest.mark.parametrize("width", [4096, 4099, 20000])
 @pytest.mark.parametrize("n", [0, 1, 32768])
-def test_cms_kernel_matches_plain(dev, dtype, width, n):
+def test_cms_kernel_matches_plain(dev, dtype, width, n, path):
     g = torch.Generator(device=dev).manual_seed(width + n)
     depth = 4
     counts = _rand(g, 0, 1 << 26, depth * width, dev).reshape(depth, width).to(dtype)
     cols = _rand(g, -1, width + 3, depth * n, dev).reshape(depth, n)
     props = _rand(g, 0, 1 << 27, n, dev)
-    got = ops.cms_update(counts, cols, props, backend="cuda")
+    if dtype == torch.float32:  # signs, ±inf and both zeros
+        counts = _rand_floats(g, depth * width, dev).reshape(depth, width)
+        props = _rand_floats(g, n, dev)
+    got = sketch_kernel.cms_update_cuda(counts, cols, props, path=path)
     want = ops.cms_update(counts, cols, props, backend="torch")
     torch.cuda.synchronize()
     assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_cms_kernel_wide_rows(dev, dtype):
+    """A row wider than the opt-in shared memory takes the cooperative path;
+    the cluster path refuses it."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    depth, width, n = 3, 100_000, 50_000
+    counts = _rand(g, 0, 1 << 26, depth * width, dev).reshape(depth, width).to(dtype)
+    cols = _rand(g, -1, width + 3, depth * n, dev).reshape(depth, n)
+    props = _rand(g, 0, 1 << 27, n, dev).to(dtype)
+    got = sketch_kernel.cms_update_cuda(counts, cols, props)
+    want = ops.cms_update(counts, cols, props, backend="torch")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="cluster path"):
+        sketch_kernel.cms_update_cuda(counts, cols, props, path="cluster")
 
 
 @pytest.mark.parametrize("num_segments", [4096, 12288])
@@ -159,27 +222,83 @@ def test_segment_max_int32_values_and_masked_rows(dev, num_segments, n):
     assert got.dtype == torch.float32 and torch.equal(got, want)
 
 
-def _device_ops(fn):
+def _device_ops(fn) -> list:
     """Names of the device operations (kernels, copies, fills) of one call,
-    from torch.profiler."""
+    from torch.profiler: the longest list over three sessions.  A session
+    after the first in a process may drop device events that come right
+    after its start, never add any; each session launches a marker
+    kernel and pauses first."""
+    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    longest = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+                 and "spin_kernel" not in e.name]
+        longest = max(longest, names, key=len)
+    return longest
 
 
 @pytest.mark.parametrize("case", ["vxm", "hll", "gated, float init", "many rows, masked",
                                   "molecule", "full_graph_sm", "bfloat16 rows",
-                                  "partitioned"])
+                                  "partitioned", "hist (a), init and mask",
+                                  "hist (b) gated, sorted", "hist (n) masked",
+                                  "hist (o) int32, -1 padding", "cms (j) int32",
+                                  "cms (j) float32"])
 def test_scatter_wrappers_launch_one_kernel_per_call(dev, case):
     """A call with rows, on inputs contiguous and of the kernel's types, is
-    one kernel and nothing else: no fill, no copy of init, no cast."""
+    one kernel and nothing else: no fill, no copy of init or the cells, no
+    cast, no retire kernel."""
     g = torch.Generator(device=dev).manual_seed(11)
+    if case.startswith("hist"):
+        n, bins = {"(a)": (1 << 24, 8192), "(b)": (1 << 24, (1 << 24) + 1),
+                   "(n)": (1 << 20, 2 << 20), "(o)": (1 << 20, 2 << 20)}[case[5:8]]
+        ids = _rand(g, -1, bins, n, dev)
+        kw = {}
+        if case.startswith("hist (a)"):
+            w = _rand(g, 0, 4, n, dev).float()
+            kw.update(init=_rand(g, 0, 9, bins, dev).float(),
+                      valid_mask=_rand(g, 0, 4, bins, dev) != 0, retire=-1.0)
+        elif case.startswith("hist (b)"):
+            ids = torch.sort(ids)[0]
+            w = _rand(g, 0, 3, n, dev)
+            kw.update(gate_ids=_rand(g, 0, 9, n, dev), gate_value=3,
+                      out_dtype=torch.int32)
+        elif case.startswith("hist (n)"):
+            w = torch.rand(n, generator=g, device=dev)
+            kw.update(valid_mask=_rand(g, 0, 4, bins, dev) != 0, retire=0.0)
+        else:
+            live = n - n // 8
+            ids = torch.cat([torch.sort(ids[:live].abs())[0],
+                             torch.full((n - live,), -1, dtype=torch.int32, device=dev)])
+            w = _rand(g, 0, 40, n, dev)
+            kw["out_dtype"] = torch.int32
+        names = _device_ops(lambda: hist_kernel.histogram_cuda(ids, bins, w, **kw))
+        path = "hist_private" if bins <= 12288 else "hist_scatter"
+        assert len(names) == 1 and path in names[0], names
+        return
+    if case.startswith("cms"):
+        depth, width, n = 4, 4096, 1 << 15
+        counts = _rand(g, 0, 1 << 26, depth * width, dev).reshape(depth, width)
+        cols = torch.where(_rand(g, 0, 4, n, dev) == 0, -1,
+                           _rand(g, 0, width, depth * n, dev).reshape(depth, n))
+        props = _rand(g, 0, 1 << 27, n, dev)
+        if case.endswith("float32"):
+            counts, props = counts.float(), props.float()
+        for path in ("cluster", "cooperative"):
+            names = _device_ops(
+                lambda: sketch_kernel.cms_update_cuda(counts, cols, props, path=path))
+            assert len(names) == 1 and f"cms_{path}" in names[0], names
+        return
     if case in ("molecule", "full_graph_sm", "bfloat16 rows", "partitioned"):
         n, d, segs = {"molecule": (8192, 64, 4096), "full_graph_sm": (10752, 1433, 2816),
                       "bfloat16 rows": (5000, 33, 700),

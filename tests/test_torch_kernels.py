@@ -357,3 +357,130 @@ def test_new_kernels_dispatch_by_device():
                        backend="cuda")
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.hll_update(torch.zeros(3), cpu_i32, cpu_i32, backend="cuda")
+
+
+# --- the histogram kernel's decomposition, mirrored on the CPU ------------------
+
+# (private, blocks, threads, rows_in_flight): one block of the card's shape,
+# blocks of 2 warps that deal 300 rows round the grid in tiles of 32 or 128,
+# more blocks than a block has warps (copy groups of several copies each)
+HIST_GRIDS = [(True, 1, 1024, 4), (True, 3, 64, 1), (True, 40, 64, 1),
+              (True, 6, 128, 4), (False, 1, 1024, 4), (False, 5, 64, 1)]
+_HIST_CASES = {}
+
+
+def _hist_case(seed, kw_keys, out_dtype):
+    """The inputs of a seed, with runs of equal ids for the warp merge, and
+    the interpret-mode Pallas kernel's sum of them under the epilogues
+    named in ``kw_keys``: computed once for all the grids."""
+    key = (seed, kw_keys, out_dtype)
+    if key not in _HIST_CASES:
+        x = _inputs(seed)
+        x["ids"][::7] = x["ids"][1::7]
+        kw = {"init": x["init"]} if "init" in kw_keys else {}
+        if "gate_ids" in kw_keys:
+            kw.update(gate_ids=x["gate"], gate_value=1)
+        if "valid_mask" in kw_keys:
+            kw.update(valid_mask=x["mask"], retire=-(2 ** 31) if out_dtype else -4.0)
+        jdt = getattr(jnp, out_dtype) if out_dtype else None
+        pallas = np.asarray(jax_ops.segmented_reduce(
+            jnp.asarray(x["w"]), jnp.asarray(x["ids"]), BINS, op="sum",
+            out_dtype=jdt, backend="interpret", **_jax_kw(kw)))
+        _HIST_CASES[key] = (x, kw, pallas)
+    return _HIST_CASES[key]
+
+
+@pytest.mark.parametrize("private,blocks,threads,rows_in_flight", HIST_GRIDS)
+@pytest.mark.parametrize("out_dtype", [None, "int32"])
+@pytest.mark.parametrize("with_init,gated,masked", COMBOS)
+def test_histogram_blocked_mirror_matches_plain_and_pallas(
+        private, blocks, threads, rows_in_flight, out_dtype, with_init, gated, masked):
+    """Private copies summed in the kernel's fixed order, or the seed and
+    the scatter of warp-merged runs: bit-equal to the plain version and the
+    Pallas kernel on integer-valued weights."""
+    keys = tuple(k for k, on in (("init", with_init), ("gate_ids", gated),
+                                 ("valid_mask", masked)) if on)
+    x, kw, pallas = _hist_case(90 + 4 * with_init + 2 * gated + masked, keys,
+                               out_dtype)
+    acc = getattr(torch, out_dtype) if out_dtype else None
+    args = (torch.from_numpy(x["ids"]), BINS, torch.from_numpy(x["w"]))
+    got = ref.ref_histogram_blocked(*args, out_dtype=acc, private=private,
+                                    blocks=blocks, threads=threads,
+                                    rows_in_flight=rows_in_flight, **_torch_kw(kw))
+    assert got.dtype == (acc or torch.float32)
+    _assert_same(got, ref.ref_histogram(*args, out_dtype=acc, **_torch_kw(kw)).numpy())
+    _assert_same(got, pallas)
+
+
+@pytest.mark.parametrize("private", [True, False])
+@pytest.mark.parametrize("case", ["no rows", "every bin masked",
+                                  "ids out of range and -1", "int32 sums past 2^24",
+                                  "float sums"])
+def test_histogram_blocked_mirror_edge_cases(private, case):
+    rng = np.random.default_rng(95)
+    ids = rng.integers(-3, BINS + 3, N).astype(np.int32)
+    w = rng.integers(0, 9, N).astype(np.int32)
+    init = rng.integers(-5, 5, BINS).astype(np.int32)
+    kw, out_dtype = dict(init=init), "int32"
+    if case == "no rows":
+        ids, w = ids[:0], w[:0]
+        kw.update(valid_mask=rng.random(BINS) < 0.5, retire=7)
+    elif case == "every bin masked":
+        kw.update(valid_mask=np.zeros(BINS, bool), retire=-2)
+    elif case == "ids out of range and -1":
+        ids = np.where(ids % 2 == 0, -1, ids + BINS).astype(np.int32)
+    elif case == "int32 sums past 2^24":
+        ids[: N // 2] = 7
+        w[:] = 3_000_001  # 150 on bin 7: 450,000,150, odd, past 2^24
+    else:
+        w, init, out_dtype = w.astype(np.float32) / 4, init.astype(np.float32), None
+        kw["init"] = init
+    acc = getattr(torch, out_dtype) if out_dtype else None
+    args = (torch.from_numpy(ids), BINS, torch.from_numpy(w))
+    got = ref.ref_histogram_blocked(*args, out_dtype=acc, private=private, blocks=5,
+                                    threads=64, rows_in_flight=1, **_torch_kw(kw))
+    _assert_same(got, ref.ref_histogram(*args, out_dtype=acc, **_torch_kw(kw)).numpy())
+    jdt = getattr(jnp, out_dtype) if out_dtype else None
+    jargs = (jnp.asarray(w), jnp.asarray(ids), BINS)
+    if case == "int32 sums past 2^24":
+        # the Pallas kernel sums in float32, exact only below 2^24: the
+        # reference's exact int32 path instead
+        assert int(got[7]) > 1 << 24
+        want = jax_ref.ref_segmented_reduce(*jargs, "sum", out_dtype=jdt, **_jax_kw(kw))
+    else:
+        want = jax_ops.segmented_reduce(*jargs, op="sum", out_dtype=jdt,
+                                        backend="interpret", **_jax_kw(kw))
+    _assert_same(got, want)
+
+
+# --- the Count-Min kernel's cluster path, mirrored on the CPU --------------------
+
+@pytest.mark.parametrize("cluster", [1, 3, 8])
+@pytest.mark.parametrize("width", [64, 67])  # 67: no multiple of the cluster
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("case", ["random", "all masked", "no proposals"])
+def test_cms_clustered_mirror_matches_plain_and_pallas(cluster, width, dtype, case):
+    rng = np.random.default_rng(100 + width + cluster)
+    big = 1 << 25
+    counts = rng.integers(0, big, (DEPTH, width)).astype(dtype)
+    cols = rng.integers(-1, width + 2, (DEPTH, NPROP)).astype(np.int32)
+    props = rng.integers(0, 2 * big, NPROP).astype(dtype)
+    if dtype == np.float32:  # negative cells, -inf, both zeros
+        counts = rng.standard_normal((DEPTH, width)).astype(np.float32)
+        counts[:, ::9] = -np.inf
+        counts[:, 1::9] = -0.0
+        props = rng.standard_normal(NPROP).astype(np.float32)
+        props[::11] = 0.0
+    if case == "all masked":
+        cols[:] = -1
+    elif case == "no proposals":
+        cols, props = cols[:, :0], props[:0]
+    got = ref.ref_cms_update_clustered(torch.from_numpy(counts), torch.from_numpy(cols),
+                                       torch.from_numpy(props), cluster=cluster)
+    assert got.dtype == torch.from_numpy(counts).dtype
+    _assert_same(got, ref.ref_cms_update(torch.from_numpy(counts),
+                                         torch.from_numpy(cols),
+                                         torch.from_numpy(props)).numpy())
+    jc, jcols, jp = jnp.asarray(counts), jnp.asarray(cols), jnp.asarray(props)
+    _assert_same(got, jax_ref.ref_cms_update(jc, jcols, jp) if case == "no proposals"
+                 else cms_update_pallas(jc, jcols, jp, interpret=True))

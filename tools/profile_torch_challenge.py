@@ -19,6 +19,10 @@ call that computes the same function: ``segmax_vxm`` (2^20 float32 values
 into 2^21 segments with ``valid_mask``), ``hll_fold`` (2^15 rows into 4,096
 registers with ``init``) and ``cms_fold`` (int32 (4, 4096) cells, 2^15
 proposals), each with a ``_library`` twin (``scatter_reduce_``, ``amax``),
+``hist_activity`` (2^24 int32 ids into 8,192 float32 bins, the activity
+histogram's shape) and ``hist_gated`` (a gated int32 sum of 2^24 sorted
+ids into 2^24 + 1 segments, the fused epilogue's), each with a twin
+(``index_add_``),
 ``segment_reduce`` (full_graph_sm's 10,752 x 1,433 float32 messages
 into 2,816 segments, the kernel's direct launch) and ``segment_reduce_lg``
 (minibatch_lg's 168,960 x 602 into 170,496, its partitioned launch), each
@@ -38,6 +42,7 @@ path and combine in ``lm_decode``), of the matrix products and of the rest.
     python3 tools/profile_torch_challenge.py --scale 24
     python3 tools/profile_torch_challenge.py --scale 20 --phases bfs components pagerank triangles
     python3 tools/profile_torch_challenge.py --phases hll_fold hll_fold_library
+    python3 tools/profile_torch_challenge.py --phases hist_activity hist_gated cms_fold
     python3 tools/profile_torch_challenge.py --phases lm_prefill lm_decode --layers 36
 """
 from __future__ import annotations
@@ -83,11 +88,17 @@ def profile_phase(name, fn, reps, top, calls=None):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # a session after the first may drop the device events that come
+        # right after its start: a marker kernel, and a pause, first
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(0.2)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and "spin_kernel" not in e.name]
     by_name = {}
     for e in dev:
         ms, cnt = by_name.get(e.name, (0.0, 0))
@@ -125,6 +136,8 @@ def _family(kernel_name: str) -> str:
     for fam, keys in (("attention kernel", ("fa_prefill", "fa_decode", "fa_fwd")),
                       ("segment-sum kernel", ("segment_sum_tiles",)),
                       ("segment-max kernel", ("segmax_",)),
+                      ("histogram kernel", ("hist_private", "hist_scatter")),
+                      ("Count-Min kernel", ("cms_cluster", "cms_cooperative")),
                       ("matmul", ("gemm", "nvjet", "cutlass", "xmma"))):
         if any(key in name for key in keys):
             return fam
@@ -134,6 +147,7 @@ def _family(kernel_name: str) -> str:
 TABLE_PHASES = ("build_device", "anonymize", "analyze", "analyze_fused", "bfs",
                 "components", "pagerank", "triangles", "sketch_batch")
 KERNEL_PHASES = tuple(f"{k}{s}" for k in ("segmax_vxm", "hll_fold", "cms_fold",
+                                           "hist_activity", "hist_gated",
                                            "segment_reduce", "segment_reduce_lg")
                       for s in ("", "_library"))
 LM_PHASES = ("lm_prefill", "lm_decode")
@@ -146,8 +160,8 @@ def kernel_phases(dev):
     """The kernel phases: each runs CALLS calls of a wrapper (``backend=
     "cuda"``) or of its library twin on inputs pre-masked for it."""
     import torch
-    from repro_torch.kernels.ops import (cms_update, hll_update, segment_reduce,
-                                         segmented_reduce)
+    from repro_torch.kernels.ops import (cms_update, histogram, hll_update,
+                                         segment_reduce, segmented_reduce)
 
     g = torch.Generator(device=dev).manual_seed(0)
     rand = lambda lo, hi, *shape: torch.randint(lo, hi, shape, generator=g,
@@ -166,6 +180,16 @@ def kernel_phases(dev):
     cols = torch.where(rand(0, 4, 1, rows) == 0, -1, rand(0, m, depth, rows))
     props = rand(0, 1 << 27, rows)
     row0 = torch.arange(depth, device=dev)[:, None] * m
+    # the activity histogram (2^24 ids into 8 windows x 1,024 bins) and the
+    # fused epilogue's gated sum (2^24 sorted ids into 2^24 + 1 segments,
+    # window ids as the gate)
+    big, bins = 1 << 24, 8192
+    act = rand(0, bins, big)
+    ones = torch.ones(big, device=dev)
+    segs_b = big + 1
+    seg_b = torch.sort(rand(0, segs_b, big))[0]
+    gate_b = rand(0, 9, big)
+    w_b = rand(0, 3, big)
     # full_graph_sm: 10,752 edges (196 padding, at the capacity) x 1,433
     # features into 2,816 node slots
     edges, feats, nodes = 10752, 1433, 2816
@@ -197,6 +221,15 @@ def kernel_phases(dev):
             [counts.reshape(-1), counts.new_zeros(1)]).scatter_reduce_(
             0, torch.where(cols >= 0, row0 + cols, depth * m).long().reshape(-1),
             props.expand(depth, rows).reshape(-1), "amax")[:-1].view(depth, m),
+        "hist_activity": lambda: histogram(act, bins, ones, backend="cuda"),
+        "hist_activity_library": lambda: torch.zeros(bins + 1, device=dev).index_add_(
+            0, torch.where((act >= 0) & (act < bins), act, bins).long(), ones)[:bins],
+        "hist_gated": lambda: segmented_reduce(
+            w_b, seg_b, segs_b, gate_ids=gate_b, gate_value=3,
+            out_dtype=torch.int32, backend="cuda"),
+        "hist_gated_library": lambda: torch.zeros(
+            segs_b + 1, dtype=torch.int32, device=dev).index_add_(
+            0, torch.where(gate_b == 3, seg_b, segs_b).long(), w_b)[:segs_b],
         "segment_reduce": lambda: segment_reduce(msgs, recv, nodes, backend="cuda"),
         "segment_reduce_library": lambda: torch.zeros(
             nodes + 1, feats, device=dev).index_add_(
