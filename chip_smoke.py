@@ -24,14 +24,18 @@ Phases (any failure exits non-zero):
      epilogue, ``n == 0``, out-of-range ids and random float weights (to a
      stated tolerance); PageRank's plus-times vxm, 2^20 float32 products
      into 2^21 vertex slots with ``valid_mask``/``retire`` (to the same
-     tolerance), and the triangle census's int32 roll-up of 2^20 counts
-     into 2^21 segments (bit-equal);
+     tolerance), the triangle census's int32 roll-up of 2^20 counts
+     into 2^21 segments (bit-equal), and the streaming engine's activity
+     fold (s), 2^18 ids into 8,192 float bins with ``init`` (bit-equal,
+     ``index_add_`` onto ``init`` beside it);
    * segment max: the vxm's 2^20 values into 2^21 vertex slots with
      ``valid_mask``/``retire=-inf``, the HyperLogLog fold's 2^15 rows into
-     4,096 registers with ``init``, and the gate, ``n == 0``, out-of-range
-     ids, ±inf, -0.0 and random floats: all bit-equal;
+     4,096 registers with ``init`` and the same at the stream's 2^18 rows
+     (h-s), and the gate, ``n == 0``, out-of-range ids, ±inf, -0.0 and
+     random floats: all bit-equal;
    * Count-Min: int32 (4, 4096) cells with 2^15 proposals and counts past
-     2^24 (both kernel paths, cluster and cooperative, timed), float32
+     2^24 (both kernel paths, cluster and cooperative, timed), 2^18
+     proposals (j-s, the stream's micro-batch), float32
      cells (both paths), all proposals masked, ``n == 0``, rows of 100,000
      cells (the cooperative path): all bit-equal.
 3. The main path at scale 24: ``run_challenge`` with ``method="hash"``, with
@@ -94,11 +98,34 @@ Phases (any failure exits non-zero):
    twice the gap; 36 x 33 attention launches; then a control, the kernel
    path with the newest key left out of each decode step's attention,
    which the limit must reject at every step.
+8. The streaming engine (``repro_torch.stream``) over phase 3's capture:
+   its arrays written as a plq of 64 row groups of 2^18 rows and read back
+   equal, so phase 3's NumPy oracle is reused. ``stream_plq`` into an
+   exact-tier engine (``link_capacity`` 2^24, ``ip_capacity`` 2^25, 8
+   windows, 1,024 bins), then ``snapshot()``: the scalars against the
+   oracle, overflow 0, the accumulated activity bit-equal to the plain
+   windowed histogram of the whole capture, one histogram launch a batch
+   (its ``init`` epilogue) and none in the snapshot; the steady-state
+   packets/s and seconds a batch, the snapshot wall and
+   ``max_memory_allocated``. ``--time-phases`` over the first 8 batches
+   (prep, transfer and update a batch). Both tiers over the capture: every
+   sketch estimate within its bound, 1 histogram, 2 Count-Min and 3
+   segment-max launches a batch, and the host syncs of batches 1-63
+   counted with ``torch.cuda.set_sync_debug_mode("warn")``, by line. Two
+   engines fed batches 0-31 and 32-63, merged through ``merge_from``
+   (sketch included): scalars, bounds, and activity bit-equal to the
+   exact run's. At scale 20, 16 batches through ``update_state`` and
+   ``update_state_naive``, every leaf identical after every batch, each
+   timed; then ``algorithms()`` against the NumPy oracles on the link
+   table in the stable-id domain, with its launch counts. The CLI
+   ``python -m repro_torch.stream.run --scale 18 --batches 8 --tier both``
+   (exit 0, both oracle lines) and with ``--link-capacity 1000`` (exit 1).
 
 Then it prints one JSON line of kernel records, whose launch counts are
 those of the main path's runs (phases 3, 4 and 5, without the algorithms
 timed on their own; the segment-sum entry point's run of phase 6; phase
-7's counted run), the card line again, and as its last line
+7's counted run; phase 8's runs, each under its own name), the card line
+again, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout (no ``src/repro_torch``), it exits non-zero before printing any
 result.
@@ -124,6 +151,11 @@ ALGO_SCALE = 20             # the graph-algorithm pass (docstring, phase 4)
 CLI_SCALE = 18
 N_WINDOWS, IP_BINS = 8, 1024
 SKETCH_BATCH = 1 << 15      # run_sketch_tier's micro-batch
+STREAM_BATCH = 1 << 18      # the streaming engine's micro-batch (phase 8)
+STREAM_PHASE_BATCHES = 8    # batches timed phase by phase (--time-phases)
+STREAM_AB_BATCHES = 16      # the A/B of the two link paths at ALGO_SCALE
+# what torch.cuda.set_sync_debug_mode("warn") says at a synchronizing call
+SYNC_WARNING = "called a synchronizing CUDA operation"
 SOURCES = ("histogram", "segreduce", "sketch", "flash_attention", "segment_matmul")
 # The bound of each timed shape is the larger of its bytes (each input read
 # once, each output written once) over the H100 SXM's memory rate and its
@@ -530,6 +562,29 @@ def check_histogram(dev):
         **timings(kern, plain, library),
         "bound_ms": (8 * m + 4 * segs) / HBM_BYTES_PER_S * 1e3,
     })
+
+    # (s) the streaming engine's activity fold (phase 8): a micro-batch of
+    # STREAM_BATCH activity ids into the 8,192 flat bins, weights 1.0 on the
+    # live rows (the padding's ids are -1), folded into the running
+    # histogram through init: bit-equal
+    k = STREAM_BATCH
+    ids_s = torch.where(torch.arange(k, device=dev) < k - k // 16,
+                        rand(0, bins_a, k), -1)
+    w_s = (ids_s >= 0).float()
+    init = rand(0, 1 << 20, bins_a).float()
+    kern = lambda: histogram(ids_s, bins_a, w_s, init=init, backend="cuda")
+    plain = lambda: histogram(ids_s, bins_a, w_s, init=init, backend="torch")
+    same(f"(s) stream activity fold: 2^18 ids -> {bins_a} float bins with init",
+         kern(), plain())
+    add_s = lambda: torch.cat([init, init.new_zeros(1)]).index_add_(
+        0, torch.where((ids_s >= 0) & (ids_s < bins_a), ids_s, bins_a).long(),
+        w_s)[:bins_a]
+    same("(s) index_add_ onto init computes the same bins", add_s(), plain())
+    shapes.append({
+        "case": f"s: ids int32 (2^18,), weights float32, init float32, {bins_a} bins",
+        **timings(kern, plain, add_s),
+        "bound_ms": (8 * k + 8 * bins_a) / HBM_BYTES_PER_S * 1e3,
+    })
     return max_err, shapes
 
 
@@ -604,6 +659,21 @@ def check_segment_max(dev):
          plain())
     timed("h: rho int32 (2^15,), reg ids int32, 4,096 registers, init",
           kern, plain, library, SKETCH_BATCH, m, 4 * m)
+    # (h-s) the same fold at the streaming engine's micro-batch (phase 8)
+    reg_ids_s = torch.where(rand(0, 16, STREAM_BATCH) == 0, -1,
+                            rand(0, m, STREAM_BATCH))
+    rhos_s = rand(1, 22, STREAM_BATCH)
+    kern = lambda: hll_update(regs, reg_ids_s, rhos_s, backend="cuda")
+    plain = lambda: hll_update(regs, reg_ids_s, rhos_s, backend="torch")
+    same("(h-s) HLL fold: 2^18 rows -> 4,096 registers with init", kern(), plain())
+    library = lambda: torch.cat([regs, regs.new_full((1,), float("-inf"))]
+                                ).scatter_reduce_(
+        0, torch.where(reg_ids_s >= 0, reg_ids_s, m).long(), rhos_s.float(),
+        "amax")[:m]
+    same("(h-s) the library yardstick computes the same registers", library(),
+         plain())
+    timed("h-s: rho int32 (2^18,), reg ids int32, 4,096 registers, init",
+          kern, plain, library, STREAM_BATCH, m, 4 * m)
 
     # (i) the epilogues, no rows, out-of-range ids
     for nseg in (1000, 4096, 20000):
@@ -676,6 +746,31 @@ def check_cms(dev):
                 "proposals int32 (2^15,)",
         **timings(kern, plain, library), **paths,
         "bound_ms": (4 * depth * n + 4 * n + 8 * depth * width)
+        / HBM_BYTES_PER_S * 1e3,
+    })
+    # (j-s) the streaming engine's micro-batch (phase 8): 2^18 proposals,
+    # the link groups past the batch's distinct links masked
+    k = STREAM_BATCH
+    cols_s = torch.where(torch.arange(k, device=dev)[None, :] < k // 2,
+                         rand(0, width, depth, k), -1)
+    props_s = rand(0, 1 << 27, k)
+    kern_s = lambda: cms_update(counts, cols_s, props_s, backend="cuda")
+    plain_s = lambda: cms_update(counts, cols_s, props_s, backend="torch")
+    same("(j-s) int32 (4, 4096) cells, 2^18 proposals", kern_s(), plain_s())
+
+    def library_s():
+        flat = torch.where(cols_s >= 0, rows + cols_s, depth * width).long().reshape(-1)
+        cells = torch.cat([counts.reshape(-1), counts.new_zeros(1)])
+        return cells.scatter_reduce_(0, flat, props_s.expand(depth, k).reshape(-1),
+                                     "amax")[:-1].view(depth, width)
+
+    same("(j-s) the library yardstick computes the same cells", library_s(),
+         plain_s())
+    shapes.append({
+        "case": "j-s: cells int32 (4, 4096), col ids int32 (4, 2^18), "
+                "proposals int32 (2^18,)",
+        **timings(kern_s, plain_s, library_s),
+        "bound_ms": (4 * depth * k + 4 * k + 8 * depth * width)
         / HBM_BYTES_PER_S * 1e3,
     })
     # (k) float32 cells, both paths; (l) every proposal masked; (m) no
@@ -786,7 +881,7 @@ def main_path(dev, workdir: str):
     if snap.n_batches != batches or verify_sketch(snap, ref):
         raise AssertionError("sketch tier: an estimate is outside its bound")
     log("[sketch tier] all sketch estimates within their configured bounds")
-    return launches, wall
+    return launches, wall, cap, ref
 
 
 def algorithm_pass(dev, workdir: str):
@@ -909,6 +1004,296 @@ def cli_algorithms_and_sketch() -> dict:
         raise AssertionError(f"the CLI launched no kernel of {launches}")
     log(f"[cli] kernel launches {launches}")
     return launches
+
+
+def stream_engine(dev, capture, ref):
+    """Phase 8: the streaming engine (``repro_torch.stream``) over phase 3's
+    scale-24 capture in micro-batches of STREAM_BATCH rows, exact, with
+    per-phase walls, with both tiers and merged from two halves; the A/B of
+    the two link paths and the algorithms at scale 20; the CLI.  ``capture``
+    and ``ref`` are phase 3's capture and its NumPy oracle, reused once the
+    plq written here reads back equal to the capture.  Returns the runs'
+    launches and a summary of the numbers."""
+    import dataclasses
+    import warnings
+
+    import numpy as np
+    import torch
+    from repro_torch.challenge.pipeline import window_column
+    from repro_torch.challenge.run import verify_sketch
+    from repro_torch.convert import tensor_leaves
+    from repro_torch.core.ops import mix32
+    from repro_torch.core.ref import ref_bfs, ref_cc, ref_pagerank, ref_triangles
+    from repro_torch.core.sketch import SketchConfig
+    from repro_torch.data.plq import read_plq, write_plq
+    from repro_torch.data.rmat import synthetic_packets
+    from repro_torch.kernels.ops import windowed_histogram
+    from repro_torch.stream import (StreamConfig, StreamEngine, init_state,
+                                    link_table, steady_state, stream_plq,
+                                    update_state, update_state_naive)
+    from repro_torch.stream.run import main as stream_main
+
+    n = len(capture["src"])
+    batches = -(-n // STREAM_BATCH)
+    win = window_column(capture["ts"], N_WINDOWS)
+    launches, summary = {}, {"batches": batches, "batch_rows": STREAM_BATCH}
+    cfg = StreamConfig(batch_capacity=STREAM_BATCH, link_capacity=n,
+                       n_windows=N_WINDOWS, ip_bins=IP_BINS, device=str(dev))
+    both = dataclasses.replace(cfg, tier="both", sketch=SketchConfig())
+    off = {"histogram": 0, "segment_max": 0, "cms_update": 0, "hll_update": 0,
+           **NO_LM_OR_GNN}
+
+    def check_launches(name, **want):
+        launches[name] = read_launches()
+        if launches[name] != {**off, **want}:
+            raise AssertionError(f"{name}: kernel launches {launches[name]}, "
+                                 f"the code implies {want}")
+        log(f"[{name}] kernel launches {launches[name]}")
+
+    def check_scalars(name, snap):
+        bad = {k: (int(getattr(snap.results.scalars, k)), v) for k, v in ref.items()
+               if int(getattr(snap.results.scalars, k)) != v}
+        if bad or snap.overflow != 0:
+            raise AssertionError(f"{name}: overflow {snap.overflow}, scalars "
+                                 f"(stream, oracle) disagree: {bad}")
+        log(f"[{name}] all {len(ref)} scalars match the NumPy oracle, overflow 0")
+
+    def write(path, rows, names):
+        write_plq(path, {k: capture[k][rows] for k in names},
+                  row_group_size=STREAM_BATCH)
+        return path
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_stream_") as workdir:
+        path = write(os.path.join(workdir, "capture.plq"), slice(None),
+                     ("ts", "src", "dst"))
+        back = read_plq(path, ["ts", "src", "dst"])
+        if not all(np.array_equal(back[k], capture[k]) for k in back):
+            raise AssertionError("the stream's plq does not read back as phase "
+                                 "3's capture")
+        log(f"{n:,} packets of phase 3's capture in {batches} row groups of "
+            f"{STREAM_BATCH:,} (read back equal: phase 3's oracle reused)")
+
+        # 1. the exact tier, overlapped, then a snapshot
+        eng = StreamEngine(cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        timings = stream_plq(eng, path, win)
+        stream_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        snap = eng.snapshot()
+        snap_s = time.perf_counter() - t0
+        # one activity fold a batch; the snapshot launches none (analyze is
+        # handed the accumulated activity)
+        check_launches("stream_exact", histogram=batches)
+        check_scalars("stream_exact", snap)
+        ss = steady_state(timings)
+        summary["exact"] = {
+            "stream_s": stream_s, "steady_batch_s": ss["batch_s"],
+            "steady_packets_per_s": ss["packets_per_s"],
+            "first_batch_s": timings[0].total_s, "snapshot_s": snap_s,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "n_links": snap.n_links, "n_ips": snap.n_ips}
+        log(f"[stream_exact] steady state {ss['packets_per_s']:,.0f} packets/s, "
+            f"{ss['batch_s']:.4f} s a batch (first batch {timings[0].total_s:.3f} "
+            f"s); {stream_s:.3f} s for the stream, snapshot {snap_s:.3f} s; "
+            f"{snap.n_links:,} links, {snap.n_ips:,} IPs; max_memory_allocated "
+            f"{summary['exact']['max_memory_allocated'] / 2 ** 30:.2f} GiB")
+        src = torch.from_numpy(capture["src"].astype(np.int64)).to(dev)
+        plain = windowed_histogram(
+            torch.from_numpy(win).to(dev), (mix32(src) % IP_BINS).to(torch.int32),
+            N_WINDOWS, IP_BINS, weights=torch.ones(n, device=dev), backend="torch")
+        if not torch.equal(eng.state.activity, plain):
+            raise AssertionError("stream_exact: the accumulated activity differs "
+                                 "from the plain histogram of the capture")
+        log("[stream_exact] accumulated activity == the plain windowed "
+            "histogram of the whole capture, bit for bit")
+        activity = eng.state.activity.clone()
+        del eng, snap, src, plain
+
+        # 2. per-phase walls over the first STREAM_PHASE_BATCHES batches
+        m = STREAM_PHASE_BATCHES * STREAM_BATCH
+        part = write(os.path.join(workdir, "first.plq"), slice(0, m), ("src", "dst"))
+        eng = StreamEngine(cfg)
+        ss = steady_state(stream_plq(eng, part, win[:m], time_phases=True))
+        summary["time_phases"] = {k: ss[k] for k in
+                                  ("prep_s", "transfer_s", "update_s", "batch_s")}
+        log(f"[stream --time-phases] {STREAM_PHASE_BATCHES} batches, steady "
+            f"state a batch: prep {ss['prep_s']:.5f} s, transfer "
+            f"{ss['transfer_s']:.5f} s, update {ss['update_s']:.5f} s")
+        del eng
+
+        # 3. both tiers, counting the host syncs of the steady-state batches;
+        # first a control: one sync the count must see
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                torch.ones(1, device=dev).item()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        if not any(SYNC_WARNING in str(w.message) for w in caught):
+            raise AssertionError("the host-sync count misses a .item()")
+        eng = StreamEngine(both)
+
+        def sync_window(i, _):
+            if i == 0:
+                torch.cuda.set_sync_debug_mode("warn")
+            if i == batches - 1:
+                torch.cuda.set_sync_debug_mode("default")
+
+        reset_launches()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            try:
+                timings = stream_plq(eng, path, win, on_batch=sync_window)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        snap = eng.snapshot()
+        check_launches("stream_both", histogram=batches, cms_update=2 * batches,
+                       segment_max=3 * batches, hll_update=3 * batches)
+        check_scalars("stream_both", snap)
+        if verify_sketch(snap.sketch, ref):
+            raise AssertionError("stream_both: a sketch estimate is outside its bound")
+        syncs = {}
+        for w in caught:
+            if SYNC_WARNING in str(w.message):
+                site = f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+                syncs[site] = syncs.get(site, 0) + 1
+        ss = steady_state(timings)
+        summary["both"] = {"steady_batch_s": ss["batch_s"],
+                           "steady_packets_per_s": ss["packets_per_s"],
+                           "host_syncs": sum(syncs.values()),
+                           "host_syncs_per_batch": sum(syncs.values()) / (batches - 1),
+                           "sync_sites": syncs}
+        log(f"[stream_both] every sketch estimate within its bound; steady state "
+            f"{ss['packets_per_s']:,.0f} packets/s, {ss['batch_s']:.4f} s a "
+            f"batch; host syncs over batches 1-{batches - 1}: "
+            f"{sum(syncs.values())} {json.dumps(syncs)}")
+        del eng, snap
+
+        # 4. two engines, one half each, merged
+        half = batches // 2 * STREAM_BATCH
+        reset_launches()
+        shards = []
+        for name, rows in (("a", slice(0, half)), ("b", slice(half, n))):
+            shard = StreamEngine(both)
+            stream_plq(shard, write(os.path.join(workdir, f"half_{name}.plq"),
+                                    rows, ("src", "dst")), win[rows])
+            shards.append(shard)
+        shards[0].merge_from(shards[1].state, shards[1].sketch_state)
+        snap = shards[0].snapshot()
+        check_launches("stream_merge", histogram=batches, cms_update=2 * batches,
+                       segment_max=3 * batches, hll_update=3 * batches)
+        check_scalars("stream_merge", snap)
+        if verify_sketch(snap.sketch, ref) or snap.n_batches != batches:
+            raise AssertionError("stream_merge: the merged sketch is outside its "
+                                 "bounds or lost batches")
+        if not torch.equal(shards[0].state.activity, activity):
+            raise AssertionError("stream_merge: merged activity != step 1's")
+        log(f"[stream_merge] batches 0-{batches // 2 - 1} and {batches // 2}-"
+            f"{batches - 1} merged: scalars, sketch bounds and activity (== step "
+            "1's, bit for bit) hold")
+        del shards, snap
+
+    # 5. the two link paths side by side, then the algorithms, at scale 20
+    n20 = 1 << ALGO_SCALE
+    rows20 = n20 // STREAM_AB_BATCHES
+    cols = synthetic_packets(n20, scale=ALGO_SCALE, seed=SEED)
+    dcols = [torch.from_numpy(np.ascontiguousarray(c, np.int32)).to(dev)
+             for c in (cols["src"], cols["dst"], window_column(cols["ts"], N_WINDOWS))]
+    cfg20 = dataclasses.replace(cfg, batch_capacity=rows20, link_capacity=n20)
+    fast = naive = init_state(n20, cfg20.ips, N_WINDOWS, IP_BINS, dev)
+    walls = {"update_state": [], "update_state_naive": []}
+    reset_launches()
+    for i in range(STREAM_AB_BATCHES):
+        batch = [c[i * rows20:(i + 1) * rows20] for c in dcols]
+        for name, fn in (("update_state", update_state),
+                         ("update_state_naive", update_state_naive)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(fast if name == "update_state" else naive, *batch, rows20)
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+            if name == "update_state":
+                fast = out
+            else:
+                naive = out
+        pairs = list(zip(tensor_leaves(fast), tensor_leaves(naive)))
+        diff = [k for (k, a), (_, b) in pairs if not torch.equal(a, b)]
+        if diff or len(pairs) != 14:
+            raise AssertionError(f"batch {i}: update_state and update_state_naive "
+                                 f"differ in {diff}")
+    check_launches("stream_ab", histogram=2 * STREAM_AB_BATCHES)
+    summary["ab_s_per_batch"] = {k: sum(v[1:]) / (len(v) - 1) for k, v in walls.items()}
+    log(f"[stream_ab] scale {ALGO_SCALE}, {STREAM_AB_BATCHES} batches of "
+        f"{rows20:,}: every leaf identical after every batch; s a batch (first "
+        f"excluded, synchronized): {json.dumps(summary['ab_s_per_batch'])}")
+    eng = StreamEngine(cfg20)
+    eng.load(fast)
+    del fast, naive
+    reset_launches()
+    t0 = time.perf_counter()
+    alg = eng.algorithms(source=0)
+    summary["algorithms_s"] = time.perf_counter() - t0
+    bfs_it, cc_it, pr_it = (int(alg.bfs.iterations), int(alg.components.iterations),
+                            int(alg.pagerank.iterations))
+    check_launches("stream_algorithms", segment_max=bfs_it + 2 * cc_it,
+                   histogram=pr_it + 1)
+    t = link_table(eng.state)
+    n_links, n_live = int(t.n_valid), int(eng.state.n_ips)
+    s, d, w = (t[c][:n_links].cpu().numpy().astype(np.int64)
+               for c in ("src", "dst", "n_packets"))
+    host = lambda x: x.cpu().numpy()
+    levels, labels = host(alg.bfs.levels), host(alg.components.labels)
+    ranks, per_node = host(alg.pagerank.ranks), host(alg.triangles.per_node)
+    want_pr, _, _ = ref_pagerank(s, d, w, n_live)
+    want_tri, total = ref_triangles(s, d, n_live)
+    want_cc = ref_cc(s, d, n_live)
+    checks = {
+        "bfs": np.array_equal(levels[:n_live], ref_bfs(s, d, n_live, 0))
+        and bool((levels[n_live:] == -1).all()),
+        "components": np.array_equal(labels[:n_live], want_cc)
+        and bool((labels[n_live:] == -1).all())
+        and int(alg.components.n_components) == len(np.unique(want_cc)),
+        "pagerank": float(np.abs(ranks[:n_live] - want_pr).sum()) < 1e-6
+        and bool((ranks[n_live:] == 0).all()),
+        "triangles": np.array_equal(per_node[:n_live], want_tri.astype(np.float32))
+        and int(alg.triangles.total) == total,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"stream algorithms vs the NumPy oracles: {checks}")
+    log(f"[stream_algorithms] {n_links:,} links, {n_live:,} vertices: bfs "
+        f"({bfs_it} steps), components, pagerank ({pr_it} steps, L1 < 1e-6) and "
+        f"triangles ({total:,}) match the oracles; {summary['algorithms_s']:.3f} s")
+    del eng, alg, dcols
+
+    # 6. the CLI
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_stream_cli_") as workdir:
+        argv = ["--scale", str(CLI_SCALE), "--batches", "8", "--workdir", workdir]
+        out = io.StringIO()
+        reset_launches()
+        with contextlib.redirect_stdout(out):
+            rc = stream_main(argv + ["--tier", "both"])
+        log(out.getvalue())
+        if rc != 0 or any(line not in out.getvalue() for line in (
+                "all scalar queries match the NumPy oracle",
+                "all sketch estimates within their configured bounds")):
+            raise AssertionError(f"python -m repro_torch.stream.run exited {rc} "
+                                 "or left out an oracle line")
+        check_launches("stream_cli", histogram=8, cms_update=16, segment_max=24,
+                       hll_update=24)
+        err = io.StringIO()
+        reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(err):
+            rc = stream_main(argv + ["--link-capacity", "1000"])
+        if rc != 1 or "state overflow" not in err.getvalue():
+            raise AssertionError(f"the stream CLI with 1,000 links of capacity "
+                                 f"exited {rc}, not 1 on overflow")
+        check_launches("stream_cli_overflow", histogram=8)
+        log("[stream_cli] exit 0 with both oracle lines; exit 1 on overflow")
+    return launches, summary
 
 
 def _visible_keys(lq, lkv, causal, window):
@@ -1418,7 +1803,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         log(f"\n== phase 3: main path, run_challenge at scale {SCALE}, "
             "then the sketch tier")
-        main_launches, sketch_s = main_path(dev, workdir)
+        main_launches, sketch_s, capture, ref = main_path(dev, workdir)
         log(f"\n== phase 4: the graph-algorithm pass at scale {ALGO_SCALE}")
         algo_launches, alone_launches, algo_ms = algorithm_pass(dev, workdir)
 
@@ -1439,13 +1824,20 @@ def main() -> int:
     log(f"\n== phase 7: LM serving, granite-8b at full size, {SERVE_BATCH} x "
         f"{SERVE_PROMPT} prompt tokens, {SERVE_STEPS} decode steps")
     serve_launches, serve = serve_granite(dev)
-    log(f"phase 6 took {t1 - t0:.1f} s, phase 7 {time.perf_counter() - t1:.1f} s")
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    log(f"\n== phase 8: the streaming engine, phase 3's capture in micro-batches "
+        f"of {STREAM_BATCH:,} rows")
+    stream_launches, stream = stream_engine(dev, capture, ref)
+    log(f"phase 6 took {t1 - t0:.1f} s, phase 7 {t2 - t1:.1f} s, phase 8 "
+        f"{time.perf_counter() - t2:.1f} s")
 
     # launches of the main path's runs only; the algorithms timed alone and
     # the comparisons with the plain versions are counted nowhere
     by_kernel = lambda k, runs: {r: v[k] for r, v in runs.items() if v[k]}
     launches = {**main_launches, "algorithms": algo_launches, "cli": cli_launches,
-                "segment_reduce": segsum_launches, "serve": serve_launches}
+                "segment_reduce": segsum_launches, "serve": serve_launches,
+                **stream_launches}
     hll_shape = [s for s in checks["segment_max"][1] if s["case"].startswith("h:")]
     kernels = [
         record("histogram", "src/repro_torch/kernels/csrc/histogram.cu",
@@ -1471,7 +1863,8 @@ def main() -> int:
         if rec["launches"] == 0:
             raise AssertionError(f"{rec['name']}: no launch on the main path")
     log(json.dumps({"sketch_tier_s": sketch_s, "algorithms_alone_ms": algo_ms,
-                    "algorithms_alone_launches": alone_launches, "serve": serve}))
+                    "algorithms_alone_launches": alone_launches, "serve": serve,
+                    "stream": stream}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

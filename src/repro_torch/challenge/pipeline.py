@@ -339,6 +339,7 @@ def analyze(
     algorithms: bool = False,
     bfs_source: int = 0,
     device="cuda",
+    window_activity: Optional[torch.Tensor] = None,
 ) -> ChallengeResults:
     """Every challenge statistic off THREE sorts: the packed src-leading
     (src, dst) sort, the mirrored dst-leading sort and the half-domain
@@ -355,6 +356,10 @@ def analyze(
     dst-keyed CSR as its transpose): still three sorts.  The static vertex
     domain is ``2 * capacity`` (anonymized ids are below the number of
     distinct IPs, which both endpoints of every row bound).
+
+    ``window_activity`` is reported in place of the per-window activity
+    histogram, which is then not computed: the streaming engine passes the
+    activity it accumulated over its batches.
     """
     device = resolve_device(device)
     if t.device != device:
@@ -393,7 +398,8 @@ def analyze(
         windowed=windowed_queries(t, 1, n_windows, ts_col="win", t0=0,
                                   plans=plans, method=windowed_method,
                                   fused=fused_epilogue, backend=backend),
-        window_activity=_window_activity(t, n_windows, ip_bins, backend),
+        window_activity=(_window_activity(t, n_windows, ip_bins, backend)
+                         if window_activity is None else window_activity),
         window_ip_overlap=cross_window_ip_overlap(t, n_windows, ips=ips),
     )
 

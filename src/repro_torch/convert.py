@@ -13,6 +13,8 @@ It reads fields by name and turns every leaf into a numpy array, so the same
 call flattens the reference's results (whose fields carry the same names)
 and the tests compare the two dicts key by key.  The challenge pipeline
 builds its packet table with :func:`table_from_numpy` too.
+:func:`tensor_leaves` walks a state (a ``StreamState``, a ``SketchState``)
+down to its tensors, for comparing two states on the device.
 :func:`transformer_params_from_numpy` builds the port's ``Transformer``
 from the reference's parameter pytree, so both compute with one set of
 weights.
@@ -20,7 +22,7 @@ weights.
 from __future__ import annotations
 
 import dataclasses
-from typing import TYPE_CHECKING, Dict, Mapping
+from typing import TYPE_CHECKING, Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -32,7 +34,7 @@ if TYPE_CHECKING:  # the model layer loads only when a transformer is built
     from .models.transformer import Transformer, TransformerConfig
 
 __all__ = ["table_from_numpy", "sketch_state_from_numpy", "results_to_numpy",
-           "transformer_params_from_numpy"]
+           "tensor_leaves", "transformer_params_from_numpy"]
 
 
 def table_from_numpy(columns: Mapping[str, np.ndarray], n_valid: int,
@@ -92,6 +94,20 @@ def results_to_numpy(results) -> Dict[str, np.ndarray]:
     for f in dataclasses.fields(results):
         _flatten(f.name, getattr(results, f.name), out)
     return out
+
+
+def tensor_leaves(x, prefix: str = "") -> Iterator[Tuple[str, torch.Tensor]]:
+    """``(path, tensor)`` of every tensor in ``x``, through tuples and
+    dataclasses, in field order (``"links.row_keys.0"``...)."""
+    if isinstance(x, torch.Tensor):
+        yield prefix, x
+    elif isinstance(x, tuple):
+        for i, v in enumerate(x):
+            yield from tensor_leaves(v, f"{prefix}.{i}" if prefix else str(i))
+    elif dataclasses.is_dataclass(x):
+        for f in dataclasses.fields(x):
+            yield from tensor_leaves(getattr(x, f.name),
+                                     f"{prefix}.{f.name}" if prefix else f.name)
 
 
 def _weight(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""Relational primitives — the port of ``repro/core/ops.py`` (plan-path subset).
+"""Relational primitives — the port of ``repro/core/ops.py`` (the plan path,
+``isin`` and the sort by three or more keys).
 
 Every op keeps the reference's static-shape contract: arrays of a fixed
 ``capacity`` with the first ``n_valid`` rows live, results tail-padded with
@@ -13,6 +14,10 @@ Three things differ from JAX and shape the code:
   lo_biased_u32`` into a signed int64, which orders the same way.  The
   invalid sentinel is ``INT64_MAX``, which unpacks to the same
   ``(INT32_MAX, INT32_MAX)`` tail the reference's ``UINT64_MAX`` does.
+  torch has no multi-operand sort either, so three or more keys, which
+  the reference sorts in one comparator sort, sort in stable passes of
+  one word each, least significant first: one more sort than the
+  reference's for ``(win, src, dst)``.
 * **uint32 words are int64 in ``[0, 2^32)``.**  torch has no ``>>`` or
   ``%`` for ``uint32``, so :func:`mix32` and hashed keys compute in int64,
   masked to 32 bits after every step that can leave the range.  A key
@@ -36,6 +41,7 @@ __all__ = [
     "groupby_aggregate",
     "UniqueResult",
     "factorize",
+    "isin",
     "masked_max",
     "clamp_k",
     "top_k",
@@ -88,16 +94,59 @@ def _stable_partition_perm(valid: torch.Tensor) -> torch.Tensor:
         0, dest, torch.arange(cap, device=valid.device))
 
 
+def _pass_word(keys: Sequence[torch.Tensor],
+               invalid: Optional[torch.Tensor]) -> torch.Tensor:
+    """One sort pass's int64 word of one or two keys; ``invalid`` rows go
+    last (the validity flag above a single key, ``INT64_MAX`` for a pair)."""
+    if len(keys) == 1:
+        packed = _word(keys[0])
+        if invalid is not None:
+            packed = packed | (invalid.to(torch.int64) << 32)
+        return packed
+    packed = ((_word(keys[0]) - _I32_BIAS) << 32) | _word(keys[1])
+    return packed if invalid is None else torch.where(invalid, _I64_MAX, packed)
+
+
+def _multi_pass_order(keys: Sequence[torch.Tensor],
+                      invalid: Optional[torch.Tensor]) -> torch.Tensor:
+    """Stable lexicographic order of three or more keys: one stable sort
+    per pass, least significant pass first, each pass pairing two keys into
+    one int64 word (an odd count leaves the least significant key to sort
+    alone, first, in its own dtype).  The most significant pass carries
+    validity; a live row whose two leading keys are both ``INT32_MAX``
+    collides with its sentinel, and earlier passes may have put it behind
+    padding, so a stable partition on validity repairs the order."""
+    passes = [keys[i:i + 2] for i in range(0, len(keys), 2)]
+    order = None
+    for i, group in enumerate(reversed(passes)):
+        lead = i == len(passes) - 1
+        if order is not None:
+            group = [k[order] for k in group]
+        if len(group) == 1 and group[0].dtype == torch.int32:
+            word = group[0]  # a lone trailing key sorts as it is
+        else:
+            bad = None
+            if lead and invalid is not None:
+                bad = invalid if order is None else invalid[order]
+            word = _pass_word(group, bad)
+        _, o = torch.sort(word, stable=True)
+        order = o if order is None else order[o]
+    if invalid is not None:
+        order = order[_stable_partition_perm(~invalid[order])]
+    return order
+
+
 def multi_key_sort(
     keys: Sequence[torch.Tensor],
     payloads: Sequence[torch.Tensor] = (),
     n_valid=None,
     valid_mask: Optional[torch.Tensor] = None,
 ) -> Tuple[Tuple[torch.Tensor, ...], Tuple[torch.Tensor, ...]]:
-    """Stable lexicographic sort by one or two 32-bit ``keys``, carrying
-    ``payloads``; live rows (prefix ``n_valid`` or ``valid_mask``) first.
+    """Stable lexicographic sort by 32-bit ``keys``, carrying ``payloads``;
+    live rows (prefix ``n_valid`` or ``valid_mask``) first.
 
-    ONE ``torch.sort(stable=True)`` of one int64 word per row:
+    One or two keys take ONE ``torch.sort(stable=True)`` of one int64 word
+    per row:
 
     * 1 key: the high word carries the validity flag, the low word the key;
     * 2 keys: the leading key (signed) is the high word, the trailing key
@@ -107,11 +156,17 @@ def multi_key_sort(
       with a ``valid_mask`` a stable partition on the carried validity
       repairs the order after the sort (one cumsum + scatter, no sort).
 
-    Returns (sorted_keys, sorted_payloads), as the reference does; the tail
-    keys unpack to ``INT32_MAX`` in the 2-key layout.
+    Three or more keys, where the reference runs one multi-operand sort,
+    take one stable sort per pair of keys (:func:`_multi_pass_order`): two
+    for ``(win, src, dst)``.
+
+    Returns (sorted_keys, sorted_payloads), as the reference does.  The live
+    prefix, payload order included, equals the reference's stable sort; the
+    tail keys unpack to ``INT32_MAX`` in the 2-key layout and, as in the
+    reference, are undefined with three or more keys.
     """
-    if not 1 <= len(keys) <= 2:
-        raise ValueError("multi_key_sort packs one or two 32-bit keys")
+    if not keys:
+        raise ValueError("multi_key_sort needs at least one key")
     cap = keys[0].shape[0]
     device = keys[0].device
     if valid_mask is not None:
@@ -120,15 +175,11 @@ def multi_key_sort(
         invalid = _iota(cap, device) >= _count(n_valid, cap, device)
     else:
         invalid = None
-    if len(keys) == 1:
-        packed = _word(keys[0])
-        if invalid is not None:
-            packed = packed | (invalid.to(torch.int64) << 32)
-    else:
-        packed = ((_word(keys[0]) - _I32_BIAS) << 32) | _word(keys[1])
-        if invalid is not None:
-            packed = torch.where(invalid, _I64_MAX, packed)
-    spacked, order = torch.sort(packed, stable=True)
+    if len(keys) > 2:
+        order = _multi_pass_order(keys, invalid)
+        return (tuple(k[order] for k in keys),
+                tuple(p[order] for p in payloads))
+    spacked, order = torch.sort(_pass_word(keys, invalid), stable=True)
     if len(keys) == 2 and valid_mask is not None:
         perm = _stable_partition_perm(valid_mask[order])
         spacked, order = spacked[perm], order[perm]
@@ -284,6 +335,24 @@ def factorize(x: torch.Tensor, sorted_uniques: torch.Tensor) -> torch.Tensor:
     """Rank of each element of ``x`` in the tail-padded ascending
     ``sorted_uniques`` (a binary search, not a sort)."""
     return torch.searchsorted(sorted_uniques, x, side="left").to(torch.int32)
+
+
+def isin(
+    x: torch.Tensor,
+    sorted_uniques: torch.Tensor,
+    n_uniques,
+    n_valid=None,
+) -> torch.Tensor:
+    """``df[col].isin(values)`` against the tail-padded ascending
+    ``sorted_uniques`` (first ``n_uniques`` live): one binary search per
+    element.  Returns a (capacity,) bool mask, False on padding rows
+    (past ``n_valid``).  ``x`` and ``sorted_uniques`` must share a dtype."""
+    cap = x.shape[0]
+    device = x.device
+    pos = torch.searchsorted(sorted_uniques, x, side="left").to(torch.int32)
+    safe = torch.clamp(pos, max=sorted_uniques.shape[0] - 1).long()
+    hit = (pos < _count(n_uniques, 0, device)) & (sorted_uniques[safe] == x)
+    return hit & (_iota(cap, device) < _count(n_valid, cap, device))
 
 
 def masked_max(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

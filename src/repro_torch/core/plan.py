@@ -179,13 +179,16 @@ def unique_concat(
     a: torch.Tensor,
     b: torch.Tensor,
     n_valid,
+    positions: Optional[torch.Tensor] = None,
     count_name: Optional[str] = "count",
 ) -> GroupResult:
     """Distinct values of ``concat(a, b)`` — ONE packed half-domain sort.
 
     ``a`` and ``b`` share a live prefix of ``n_valid`` rows; the two live
     blocks are compacted against each other with a gather so the (2*cap,)
-    concat sorts with a plain prefix-validity key.
+    concat sorts with a plain prefix-validity key.  ``positions`` (laid out
+    like the concat: a-rows then b-rows) adds a ``first_pos`` min aggregate,
+    the streaming dictionary's first-appearance rule.
     """
     cap = a.shape[0]
     n_valid = _count(n_valid, cap, a.device)
@@ -193,7 +196,10 @@ def unique_concat(
     idx = _iota(2 * cap, a.device)
     shifted = torch.where(idx < n_valid, idx, idx - n_valid + cap)
     sel = torch.where(idx < 2 * n_valid, shifted, 0)
-    return groupby_aggregate([both[sel]], None, n_valid=2 * n_valid,
+    values = None
+    if positions is not None:
+        values = {"first_pos": (positions[sel], "min")}
+    return groupby_aggregate([both[sel]], values, n_valid=2 * n_valid,
                              count_name=count_name)
 
 

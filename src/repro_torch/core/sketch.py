@@ -21,9 +21,8 @@ kernel with ``init``), the heavy-hitter fold one group-by and one top-k.
 The hashes are the reference's uint32 ``mix32`` family, computed in int64
 masked to 32 bits (torch has no ``>>`` or ``%`` on ``uint32``; see
 :mod:`repro_torch.core.ops`), so every register and cell equals the
-reference's bit for bit.  ``merge_sketches`` is reached only by the
-streaming engine and distribution and is not ported yet (ROADMAP.md queue
-1 item 7).
+reference's bit for bit.  :func:`merge_sketches` combines two states
+(the streaming engine's ``merge_from``).
 """
 from __future__ import annotations
 
@@ -44,6 +43,7 @@ __all__ = [
     "SketchSnapshot",
     "init_sketch",
     "update_sketch",
+    "merge_sketches",
     "snapshot_sketch",
     "sketch_scalars",
     "estimate_link_packets",
@@ -317,6 +317,48 @@ def update_sketch(
         n_packets=state.n_packets + w.sum(dtype=torch.int32),
         n_batches=state.n_batches + 1,
         seed=seed,
+    )
+
+
+def merge_sketches(a: SketchState, b: SketchState) -> SketchState:
+    """Merge two independently built sketch states (same geometry + seed).
+
+    Count–Min merges by addition (the conservative-update lower bound
+    survives: ``min_r(a+b) >= min_r a + min_r b``), HyperLogLog by the
+    element-wise max — both associative and commutative bit for bit.  The
+    heavy-hitter tables merge through the Misra–Gries fold: commutative bit
+    for bit, associative up to the error bound.
+    """
+    if (a.cms_links.shape != b.cms_links.shape
+            or a.hll_m != b.hll_m
+            or a.heavy_capacity != b.heavy_capacity
+            or a.seed != b.seed):
+        raise ValueError(
+            "merge_sketches requires equal geometry and seed: "
+            f"cms {tuple(a.cms_links.shape)}/{tuple(b.cms_links.shape)}, "
+            f"hll {a.hll_m}/{b.hll_m}, "
+            f"heavy {a.heavy_capacity}/{b.heavy_capacity}, "
+            f"seed {a.seed}/{b.seed}")
+    (hl_src, hl_dst), hl_count, hl_off = _ss_fold(
+        [a.hh_link_src, a.hh_link_dst], a.hh_link_count, a.hh_link_offset,
+        [b.hh_link_src, b.hh_link_dst], b.hh_link_count, b.hh_link_count > 0,
+        b.hh_link_offset, a.heavy_capacity)
+    (hs_key,), hs_count, hs_off = _ss_fold(
+        [a.hh_src_key], a.hh_src_count, a.hh_src_offset,
+        [b.hh_src_key], b.hh_src_count, b.hh_src_count > 0,
+        b.hh_src_offset, a.heavy_capacity)
+    return SketchState(
+        cms_links=a.cms_links + b.cms_links,
+        cms_sources=a.cms_sources + b.cms_sources,
+        hll_src=torch.maximum(a.hll_src, b.hll_src),
+        hll_dst=torch.maximum(a.hll_dst, b.hll_dst),
+        hll_links=torch.maximum(a.hll_links, b.hll_links),
+        hh_link_src=hl_src, hh_link_dst=hl_dst, hh_link_count=hl_count,
+        hh_link_offset=hl_off,
+        hh_src_key=hs_key, hh_src_count=hs_count, hh_src_offset=hs_off,
+        n_packets=a.n_packets + b.n_packets,
+        n_batches=a.n_batches + b.n_batches,
+        seed=a.seed,
     )
 
 

@@ -1,5 +1,6 @@
 """Static-shape CSR traffic matrices — the port of the subset of
-``repro/core/sparse.py`` that the graph-algorithm pass runs.
+``repro/core/sparse.py`` that the graph-algorithm pass and the streaming
+engine run.
 
 :class:`CsrMatrix` keeps the reference's static-shape discipline: every
 buffer has a fixed capacity, validity is the row-pointer prefix
@@ -11,11 +12,12 @@ products :func:`mxv`/:func:`vxm` (their reduction goes through the kernels
 of :mod:`repro_torch.kernels.ops`: the histogram kernel for plus, the
 segment-max kernel for max, and for min by negation) and the bridges
 :func:`gather_rows`/:func:`scatter_rows` between vertex and row-slot
-domains.
+domains.  The duplicate-collapsing constructor :func:`from_coo` (one sort,
+two passes for a two-column row key; overflow counted) and the CSR union
+:func:`ewise_union` carry the streaming engine's upsert and merge.
 
-Not ported yet (ROADMAP.md queue 1 item 2): ``from_coo``, ``ewise_union``,
-``transpose``, ``symmetrize`` and ``reduce_cols``, which no path of the port
-runs.
+Not ported yet (ROADMAP.md queue 1 item 2): ``transpose``, ``symmetrize``
+and ``reduce_cols``, which no path of the port runs.
 
 One difference from JAX shapes the code: under ``jit`` XLA shares the
 binary search of :meth:`CsrMatrix.entry_rows` between every use, but an
@@ -26,17 +28,29 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from ..kernels.ops import segmented_reduce
-from .ops import _iota, _max_ident, _min_ident, _scatter_firsts, _segment_extreme, segment_sum
+from .ops import (
+    _count,
+    _iota,
+    _max_ident,
+    _min_ident,
+    _scatter_firsts,
+    _segment_extreme,
+    multi_key_sort,
+    segment_ids_from_sorted,
+    segment_sum,
+)
 from .plan import SortedEdges
 
 __all__ = [
     "CsrMatrix",
     "csr_from_plan",
+    "from_coo",
+    "ewise_union",
     "reduce_rows",
     "degrees",
     "mxv",
@@ -121,6 +135,138 @@ def csr_from_plan(plan: SortedEdges) -> CsrMatrix:
                          plan.n_links)
     return CsrMatrix(row_keys=row_keys, indptr=indptr, col_keys=col_keys,
                      vals=vals, n_rows=plan.n_k0, nnz=plan.n_links)
+
+
+def _resize(a: torch.Tensor, size: int, fill) -> torch.Tensor:
+    if a.shape[0] >= size:
+        return a[:size]
+    return torch.cat([a, torch.full((size - a.shape[0],), fill, dtype=a.dtype,
+                                    device=a.device)])
+
+
+_COO_AGGS = ("plus", "max", "min")
+
+
+def from_coo(
+    row_keys: Sequence[torch.Tensor],
+    cols: torch.Tensor,
+    vals: torch.Tensor,
+    n_valid=None,
+    valid_mask: Optional[torch.Tensor] = None,
+    *,
+    op: str = "plus",
+    nnz_capacity: Optional[int] = None,
+    row_capacity: Optional[int] = None,
+) -> Tuple[CsrMatrix, torch.Tensor]:
+    """Duplicate-collapsing COO -> CSR: ONE sort by (row_keys..., cols).
+
+    Duplicate (row, col) coordinates collapse under ``op`` (``"plus"``,
+    ``"max"`` or ``"min"``, GraphBLAS ``GrB_Matrix_build`` semantics).  A
+    one-column row key packs into one sort pass, a two-column one takes
+    two (:func:`repro_torch.core.ops.multi_key_sort`).
+
+    ``nnz_capacity`` (default: the input capacity) bounds the output
+    entries and ``row_capacity`` (default ``nnz_capacity``) the rows;
+    groups past either, the lexicographically largest, are dropped and
+    counted in the returned ``dropped`` (0-d int32), never silently.
+
+    Returns ``(csr, dropped)``.
+    """
+    if op not in _COO_AGGS:
+        raise ValueError(f"unknown dup-collapse op {op!r}")
+    cap_in = cols.shape[0]
+    device = cols.device
+    nnz_cap = cap_in if nnz_capacity is None else nnz_capacity
+    row_cap = nnz_cap if row_capacity is None else row_capacity
+    if valid_mask is not None:
+        n_valid = valid_mask.sum(dtype=torch.int32)
+    else:
+        n_valid = _count(n_valid, cap_in, device)
+
+    skeys, (svals,) = multi_key_sort(
+        [*row_keys, cols], [vals],
+        n_valid=None if valid_mask is not None else n_valid,
+        valid_mask=valid_mask,
+    )
+    *srow_keys, scols = skeys
+    seg, first, n_groups = segment_ids_from_sorted(skeys, n_valid)
+    r_seg, r_first, _ = segment_ids_from_sorted(srow_keys, n_valid)
+    valid = _iota(cap_in, device) < n_valid
+
+    # entry buffers at input granularity (group slot g = entry g)
+    g_cols = _scatter_firsts(scols, seg, first, cap_in)
+    if op == "plus":
+        agg = segment_sum(torch.where(valid, svals, 0), seg, cap_in + 1)[:cap_in]
+    else:
+        ident = (_min_ident if op == "max" else _max_ident)(svals.dtype)
+        agg = _segment_extreme(torch.where(valid, svals, ident), seg, cap_in + 1,
+                               "amax" if op == "max" else "amin", ident)[:cap_in]
+
+    # row id of each entry (group), via the group-start scatter; the spill
+    # slot cap_in takes every other row and is cut off
+    entry_row = torch.full((cap_in + 1,), row_cap, dtype=torch.int32,
+                           device=device).scatter_(
+        0, torch.where(first.bool(), seg, cap_in).long(), r_seg)[:cap_in]
+    # truncation: entries are lex-sorted, so both overflow cuts are suffix
+    # cuts — keep the first n_kept groups, count the rest as dropped
+    gidx = _iota(cap_in, device)
+    fits_rows = ((gidx < n_groups) & (entry_row < row_cap)).sum(dtype=torch.int32)
+    n_kept = torch.minimum(torch.clamp(n_groups, max=nnz_cap), fits_rows)
+    dropped = n_groups - n_kept
+    # a 1-element gather, not a 0-d index (which reads it on the host)
+    last = entry_row.index_select(0, torch.clamp(n_kept - 1, min=0).view(1))[0]
+    n_rows_kept = torch.where(n_kept > 0, last + 1, 0).to(torch.int32)
+
+    e_live = _iota(nnz_cap, device) < n_kept
+    col_max = _max_ident(g_cols.dtype)
+    col_keys = torch.where(e_live, _resize(g_cols, nnz_cap, col_max), col_max)
+    out_vals = torch.where(e_live, _resize(agg, nnz_cap, 0), 0)
+
+    r_live = _iota(row_cap, device) < n_rows_kept
+    out_row_keys = []
+    for k, sk in zip(row_keys, srow_keys):
+        kmax = _max_ident(k.dtype)
+        buf = _scatter_firsts(sk, r_seg, r_first, cap_in)
+        out_row_keys.append(torch.where(r_live, _resize(buf, row_cap, kmax), kmax))
+
+    # row pointer = entry id at the first row of each row group
+    starts = torch.zeros(cap_in + 1, dtype=torch.int32, device=device).scatter_(
+        0, torch.where(r_first.bool(), r_seg, cap_in).long(), seg)
+    indptr = torch.where(_iota(row_cap + 1, device) < n_rows_kept,
+                         torch.minimum(_resize(starts, row_cap + 1, 0), n_kept),
+                         n_kept)
+    csr = CsrMatrix(row_keys=tuple(out_row_keys), indptr=indptr,
+                    col_keys=col_keys, vals=out_vals, n_rows=n_rows_kept,
+                    nnz=n_kept)
+    return csr, dropped
+
+
+def ewise_union(
+    a: CsrMatrix,
+    b: CsrMatrix,
+    *,
+    op: str = "plus",
+    nnz_capacity: Optional[int] = None,
+    row_capacity: Optional[int] = None,
+) -> Tuple[CsrMatrix, torch.Tensor]:
+    """CSR ↔ CSR element-wise union (GraphBLAS ``eWiseAdd``): the entries
+    of either operand, coincident coordinates combined under ``op``.  One
+    concat and one :func:`from_coo`; returns ``(csr, dropped)`` with
+    overflow counted as there."""
+    if len(a.row_keys) != len(b.row_keys):
+        raise ValueError(
+            f"row-key arity mismatch: {len(a.row_keys)} vs {len(b.row_keys)}")
+    if nnz_capacity is None:
+        nnz_capacity = max(a.nnz_capacity, b.nnz_capacity)
+    if row_capacity is None:
+        row_capacity = max(a.row_capacity, b.row_capacity)
+    rows = [torch.cat([a.entry_row_key(i), b.entry_row_key(i)])
+            for i in range(len(a.row_keys))]
+    return from_coo(
+        rows, torch.cat([a.col_keys, b.col_keys]), torch.cat([a.vals, b.vals]),
+        valid_mask=torch.cat([a.entry_mask(), b.entry_mask()]),
+        op=op, nnz_capacity=nnz_capacity, row_capacity=row_capacity,
+    )
 
 
 def reduce_rows(csr: CsrMatrix, op: str = "plus") -> torch.Tensor:

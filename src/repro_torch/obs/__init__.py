@@ -1,7 +1,5 @@
-"""repro_torch.obs — structured spans (the port's copy of ``repro.obs.trace``).
-
-The metrics registry of ``repro.obs.metrics`` is not ported yet.
-"""
+"""repro_torch.obs — structured spans and the metrics registry (the port's
+copies of ``repro.obs.trace`` and ``repro.obs.metrics``)."""
 from .trace import (  # noqa: F401
     SCHEMA_VERSION,
     Span,
@@ -11,6 +9,15 @@ from .trace import (  # noqa: F401
     read_jsonl,
     run_context,
     span,
+)
+from .metrics import (  # noqa: F401
+    DEFAULT_LATENCY_BUCKETS,
+    Counter,
+    Gauge,
+    Histogram,
+    MetricsRegistry,
+    get_registry,
+    reset_registry,
 )
 
 __all__ = [
@@ -22,4 +29,11 @@ __all__ = [
     "run_context",
     "export_jsonl",
     "read_jsonl",
+    "Counter",
+    "Gauge",
+    "Histogram",
+    "MetricsRegistry",
+    "get_registry",
+    "reset_registry",
+    "DEFAULT_LATENCY_BUCKETS",
 ]

@@ -15,6 +15,7 @@ import time
 import pytest
 import torch
 
+from repro_torch.convert import tensor_leaves
 from repro_torch.kernels import flash_attention as fa_kernel
 from repro_torch.kernels import histogram as hist_kernel
 from repro_torch.kernels import ops
@@ -607,3 +608,66 @@ def test_transformer_serving_kernel_matches_plain(dev, config):
     assert bool(torch.isfinite(got).all())
     rel = ((got - want).norm(dim=-1) / want.norm(dim=-1)).max().item()
     assert rel < 3e-2, rel
+
+
+def _stream_engines(dev, batches):
+    """Two streaming engines over the same 2^16-packet RMAT capture in
+    batches of 2^14 rows, both tiers: one through the kernels, one through
+    the plain versions, both on the card."""
+    from repro_torch.challenge.pipeline import window_column
+    from repro_torch.core.sketch import SketchConfig
+    from repro_torch.data.rmat import synthetic_packets
+    from repro_torch.stream import StreamConfig, StreamEngine
+
+    cols = synthetic_packets(1 << 16, scale=16, seed=1)
+    win = window_column(cols["ts"], 8)
+    rows = 1 << 14
+    engines = {b: StreamEngine(StreamConfig(
+        batch_capacity=rows, link_capacity=1 << 16, tier="both",
+        sketch=SketchConfig(), backend=b, device=str(dev)))
+        for b in ("cuda", "torch")}
+    for backend, eng in engines.items():
+        for i in batches:
+            s = slice(i * rows, (i + 1) * rows)
+            eng.ingest(cols["src"][s], cols["dst"][s], win[s])
+    return engines
+
+
+def test_stream_kernel_path_matches_plain(dev):
+    """The streaming engine through the kernels (the histogram's ``init``
+    epilogue, Count-Min, the HyperLogLog segment max) against its plain
+    path, 4 batches: every leaf of the exact state and of the sketch bit for
+    bit, and 1 histogram, 2 Count-Min and 3 segment-max launches a batch."""
+    before = (hist_kernel.LAUNCHES, sketch_kernel.LAUNCHES, segmax_kernel.LAUNCHES)
+    engines = _stream_engines(dev, range(4))
+    after = (hist_kernel.LAUNCHES, sketch_kernel.LAUNCHES, segmax_kernel.LAUNCHES)
+    assert tuple(a - b for a, b in zip(after, before)) == (4, 8, 12)
+    got, want = engines["cuda"], engines["torch"]
+    for state in ("state", "sketch_state"):
+        pairs = list(zip(tensor_leaves(getattr(got, state)),
+                         tensor_leaves(getattr(want, state))))
+        assert len(pairs) == 14
+        for (name, a), (_, b) in pairs:
+            assert a.is_cuda and torch.equal(a, b), name
+    snap = got.snapshot()
+    assert snap.overflow == 0 and snap.n_packets == 4 << 14
+
+
+def test_stream_update_queues_without_a_host_sync(dev):
+    """After a warm-up batch, folding a batch into both tiers reads nothing
+    back to the host (``torch.cuda.set_sync_debug_mode("error")`` raises on
+    any synchronizing call)."""
+    from repro_torch.stream import update_state
+    from repro_torch.core.sketch import update_sketch
+
+    eng = _stream_engines(dev, range(1))["cuda"]
+    batch = [torch.randint(0, 1 << 16, (1 << 14,), device=dev, dtype=torch.int32)
+             for _ in range(2)] + [torch.zeros(1 << 14, dtype=torch.int32, device=dev)]
+    n_valid = torch.full((), 1 << 14, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        update_state(eng.state, *batch, 1 << 14)
+        update_sketch(eng.sketch_state, batch[0], batch[1], n_valid)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")

@@ -33,7 +33,8 @@ def test_scan_covers_the_port():
     assert {"chip_smoke.py", "pipeline.py", "histogram.py", "sparse.py",
             "algorithms.py", "sketch.py", "segreduce.py", "flash_attention.py",
             "segment_matmul.py", "transformer.py", "layers.py",
-            "granite_8b.py"} <= names
+            "granite_8b.py", "engine.py", "state.py", "metrics.py",
+            "scenarios.py", "faults.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -13,6 +13,9 @@ Phases: ``build_device``, ``anonymize``, ``analyze`` and ``analyze_fused``
 ``components``, ``pagerank`` and ``triangles`` over the anonymized
 table's CSR pair, as ``analyze(algorithms=True)`` runs them;
 ``sketch_batch``, one ``update_sketch`` of the capture's first 2^15 rows;
+``stream_ingest``, the streaming engine's ``stream_plq`` of the capture's
+first 8 row groups of 2^18 rows (a plq file) into one exact-tier engine
+with ``link_capacity`` the capture's packets, the same engine each call;
 and, on random inputs of ``chip_smoke.py``'s shapes (no table is built for
 them), 20 back-to-back calls of one kernel wrapper or of the one PyTorch
 call that computes the same function: ``segmax_vxm`` (2^20 float32 values
@@ -41,6 +44,7 @@ path and combine in ``lm_decode``), of the matrix products and of the rest.
 
     python3 tools/profile_torch_challenge.py --scale 24
     python3 tools/profile_torch_challenge.py --scale 20 --phases bfs components pagerank triangles
+    python3 tools/profile_torch_challenge.py --phases stream_ingest
     python3 tools/profile_torch_challenge.py --phases hll_fold hll_fold_library
     python3 tools/profile_torch_challenge.py --phases hist_activity hist_gated cms_fold
     python3 tools/profile_torch_challenge.py --phases lm_prefill lm_decode --layers 36
@@ -145,7 +149,8 @@ def _family(kernel_name: str) -> str:
 
 
 TABLE_PHASES = ("build_device", "anonymize", "analyze", "analyze_fused", "bfs",
-                "components", "pagerank", "triangles", "sketch_batch")
+                "components", "pagerank", "triangles", "sketch_batch",
+                "stream_ingest")
 KERNEL_PHASES = tuple(f"{k}{s}" for k in ("segmax_vxm", "hll_fold", "cms_fold",
                                            "hist_activity", "hist_gated",
                                            "segment_reduce", "segment_reduce_lg")
@@ -154,6 +159,7 @@ LM_PHASES = ("lm_prefill", "lm_decode")
 PHASES = TABLE_PHASES + KERNEL_PHASES + LM_PHASES
 CALLS = 20  # back-to-back calls per kernel phase
 LM_BATCH, LM_PROMPT, LM_SLOTS, LM_STEPS = 4, 2048, 2080, 8
+STREAM_BATCH, STREAM_BATCHES = 1 << 18, 8  # stream_ingest: row groups a call
 
 
 def kernel_phases(dev):
@@ -294,6 +300,19 @@ def table_phases(args, dev):
         m = min(n, 1 << 15)
         batch = [torch.from_numpy(c[:1 << 15].copy()).to(dev) for c in (src, dst)]
         phases["sketch_batch"] = lambda: update_sketch(state, *batch, m)
+    if "stream_ingest" in args.phases:
+        from repro_torch.data.plq import write_plq
+        from repro_torch.stream import StreamConfig, StreamEngine, stream_plq
+
+        rows = STREAM_BATCH * STREAM_BATCHES
+        keep = tempfile.TemporaryDirectory(prefix="profile_torch_stream_")
+        path = os.path.join(keep.name, "stream.plq")
+        write_plq(path, {"src": src[:rows], "dst": dst[:rows]},
+                  row_group_size=STREAM_BATCH)
+        engine = StreamEngine(StreamConfig(batch_capacity=STREAM_BATCH,
+                                           link_capacity=n, device=str(dev)))
+        # the lambda names ``keep`` so that the directory lives as long as it
+        phases["stream_ingest"] = lambda: (keep, stream_plq(engine, path, win[:rows]))
     return phases
 
 
