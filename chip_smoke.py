@@ -27,7 +27,9 @@ Phases (any failure exits non-zero):
      tolerance), the triangle census's int32 roll-up of 2^20 counts
      into 2^21 segments (bit-equal), and the streaming engine's activity
      fold (s), 2^18 ids into 8,192 float bins with ``init`` (bit-equal,
-     ``index_add_`` onto ``init`` beside it);
+     ``index_add_`` onto ``init`` beside it), and the naive overlap's
+     member count (v), 2^25 ids (non-members -1) into 8 bins with no
+     weights (bit-equal, ``bincount`` and ``index_add_`` beside it);
    * segment max: the vxm's 2^20 values into 2^21 vertex slots with
      ``valid_mask``/``retire=-inf``, the HyperLogLog fold's 2^15 rows into
      4,096 registers with ``init`` and the same at the stream's 2^18 rows
@@ -121,10 +123,27 @@ Phases (any failure exits non-zero):
    ``python -m repro_torch.stream.run --scale 18 --batches 8 --tier both``
    (exit 0, both oracle lines) and with ``--link-capacity 1000`` (exit 1).
 
+9. The A/B baselines and the rest of the query surface on phase 3's
+   anonymized table: ``analyze(use_plan=False)`` and
+   ``analyze(windowed_method="grid")`` bit-equal to the plan path, each with
+   its sorts counted (3, 18, 3), its histogram launches (1, 2, 1), its peak
+   memory above the table and its wall (median of 3); then
+   ``run_challenge(fused=True)`` at scale 24, one CUDA graph of build's
+   device part, anonymize and analyze: the replay bit-equal to the phases,
+   the launches of one replay counted at its capture, which ran under
+   ``set_sync_debug_mode("error")``, and ``fused_s`` beside the eager
+   phases' sum; ``run_all_queries``, ``run_all_queries_csr``,
+   ``run_all_queries_naive`` and the per-query functions against the
+   oracle; ``connected_components(csr_t=None)`` at scale 20 equal to it
+   with the dst-keyed CSR, its segment-max launches counted; and the CLI
+   with ``--fused`` (shuffle) at scale 18: exit 0, the ``fused(b+a+a)`` row
+   and the oracle line.
+
 Then it prints one JSON line of kernel records, whose launch counts are
 those of the main path's runs (phases 3, 4 and 5, without the algorithms
 timed on their own; the segment-sum entry point's run of phase 6; phase
-7's counted run; phase 8's runs, each under its own name), the card line
+7's counted run; phase 8's and phase 9's runs, each under its own name),
+the card line
 again, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout (no ``src/repro_torch``), it exits non-zero before printing any
@@ -585,6 +604,28 @@ def check_histogram(dev):
         **timings(kern, plain, add_s),
         "bound_ms": (8 * k + 8 * bins_a) / HBM_BYTES_PER_S * 1e3,
     })
+
+    # (v) the naive overlap's member count (phase 9): the window ids of 2 x
+    # 2^24 (window, ip) pairs, non-members -1, into N_WINDOWS bins with no
+    # weights; counts of 1.0 are exact in float32 below 2^24: bit-equal
+    m = 2 * n
+    ids_v = torch.where(rand(0, 5, m) < 3, rand(0, N_WINDOWS, m), -1)
+    kern = lambda: histogram(ids_v, N_WINDOWS, backend="cuda")
+    plain = lambda: histogram(ids_v, N_WINDOWS, backend="torch")
+    same(f"(v) naive overlap count: 2^{SCALE + 1} ids (-1 non-members) -> "
+         f"{N_WINDOWS} bins, no weights", kern(), plain())
+    ones_v = torch.ones(1, device=dev).expand(m)  # index_add_'s weights, no copy
+    spill_v = lambda: torch.where(ids_v >= 0, ids_v, N_WINDOWS).long()
+    add_v = lambda: torch.zeros(N_WINDOWS + 1, device=dev).index_add_(
+        0, spill_v(), ones_v)[:N_WINDOWS]
+    same("(v) index_add_ computes the same bins", add_v(), plain())
+    shapes.append({
+        "case": f"v: ids int32 (2^{SCALE + 1},), no weights, {N_WINDOWS} bins",
+        **timings(kern, plain, lambda: torch.bincount(
+            spill_v(), minlength=N_WINDOWS + 1)[:N_WINDOWS].float()),
+        **yardstick("index_add", add_v),
+        "bound_ms": (4 * m + 4 * N_WINDOWS) / HBM_BYTES_PER_S * 1e3,
+    })
     return max_err, shapes
 
 
@@ -881,7 +922,11 @@ def main_path(dev, workdir: str):
     if snap.n_batches != batches or verify_sketch(snap, ref):
         raise AssertionError("sketch tier: an estimate is outside its bound")
     log("[sketch tier] all sketch estimates within their configured bounds")
-    return launches, wall, cap, ref
+    # what phase 9 needs of the default run, on the host: phases 4-8 run
+    # with no device memory of phase 3's left
+    table3 = {"columns": {c: v.cpu().numpy() for c, v in table.columns.items()},
+              "n_valid": int(table.n_valid), "results": a}
+    return launches, wall, cap, ref, table3
 
 
 def algorithm_pass(dev, workdir: str):
@@ -1294,6 +1339,217 @@ def stream_engine(dev, capture, ref):
         check_launches("stream_cli_overflow", histogram=8)
         log("[stream_cli] exit 0 with both oracle lines; exit 1 on overflow")
     return launches, summary
+
+
+def _median_wall(fn) -> float:
+    """Median of 3 synchronized walls of ``fn()``, seconds."""
+    import torch
+
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return sorted(walls)[1]
+
+
+@contextlib.contextmanager
+def capture_counts(out: dict):
+    """Record the kernel launches made between a ``CUDAGraph``'s capture
+    begin and end (the launches one replay repeats) and the sync debug mode
+    at its end."""
+    import torch
+
+    graph = torch.cuda.CUDAGraph
+    begin, end = graph.capture_begin, graph.capture_end
+
+    def capture_begin(self, *a, **k):
+        out["before"] = read_launches()
+        return begin(self, *a, **k)
+
+    def capture_end(self):
+        after = read_launches()
+        out["per_replay"] = {k: v - out["before"][k] for k, v in after.items()}
+        out["sync_debug_mode"] = torch.cuda.get_sync_debug_mode()
+        return end(self)
+
+    graph.capture_begin, graph.capture_end = capture_begin, capture_end
+    try:
+        yield out
+    finally:
+        graph.capture_begin, graph.capture_end = begin, end
+
+
+def ab_baselines_and_fused(dev, workdir: str, table3, ref):
+    """Phase 9: the rest of the query surface and the A/B baselines on
+    phase 3's anonymized scale-24 table (``table3``: its columns, live
+    count and default results on the host; ``ref`` its oracle):
+    ``analyze(use_plan=False)`` and ``windowed_method="grid"`` against the
+    plan path, then ``run_challenge(fused=True)`` (one CUDA graph), the
+    suite entry points and per-query functions against the oracle,
+    ``connected_components(csr_t=None)`` at scale 20 and the CLI with
+    ``--fused`` at scale 18.  Returns (launches by run, summary)."""
+    import numpy as np
+    import torch
+    from repro_torch.challenge.pipeline import (ChallengeConfig, analyze,
+                                                build_columns, read_phase,
+                                                run_challenge)
+    from repro_torch.challenge.run import main
+    from repro_torch.convert import results_to_numpy, table_from_numpy
+    from repro_torch.core import queries as q
+    from repro_torch.core.algorithms import connected_components
+    from repro_torch.core.anonymize import anonymize
+    from repro_torch.core.plan import SortCounter
+    from repro_torch.obs import get_tracer
+
+    table = table_from_numpy(table3["columns"], table3["n_valid"], dev)
+    plan_np = table3["results"]
+    kw = dict(n_windows=N_WINDOWS, ip_bins=IP_BINS, k=ChallengeConfig().top_k,
+              device=dev)
+    off = {"histogram": 0, "segment_max": 0, "cms_update": 0, "hll_update": 0,
+           **NO_LM_OR_GNN}
+    launches, summary = {}, {}
+
+    def check_launches(name, **want):
+        got = read_launches()
+        if got != {**off, **want}:
+            raise AssertionError(f"{name}: kernel launches {got}, the code "
+                                 f"implies {want}")
+        launches[name] = got
+
+    def equal_results(name, res, want_np):
+        got = results_to_numpy(res)
+        diff = [k for k in want_np if not np.array_equal(got.get(k), want_np[k])]
+        if got.keys() != want_np.keys() or diff:
+            raise AssertionError(f"{name}: results differ in {diff}")
+
+    # 1. the plan path again, and its A/B baselines: each bit-equal to
+    # phase 3's default run,
+    # its sorts counted, its histogram launches, peak memory above what is
+    # allocated before the call, and its wall (median of 3)
+    sorts_want = {"plan": 3, "naive": 18, "grid": 3}
+    hist_want = {"plan": 1, "naive": 2, "grid": 1}
+    for name, opts in (("plan", {}), ("naive", {"use_plan": False}),
+                       ("grid", {"windowed_method": "grid"})):
+        with SortCounter() as counter:
+            analyze(table, **kw, **opts)
+        if counter.n != sorts_want[name]:
+            raise AssertionError(f"analyze[{name}]: {counter.n} sorts, the code "
+                                 f"implies {sorts_want[name]}")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        res = analyze(table, **kw, **opts)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        check_launches(f"ab_{name}", histogram=hist_want[name])
+        equal_results(f"analyze[{name}]", res, plan_np)
+        del res
+        wall = _median_wall(lambda: analyze(table, **kw, **opts))
+        summary[f"analyze_{name}"] = {"wall_s": wall, "sorts": counter.n,
+                                      "peak_bytes_above": peak}
+        log(f"[analyze {name}] bit-equal to phase 3's; {counter.n} sorts; "
+            f"{hist_want[name]} histogram launches; {wall:.4f} s (median of 3); "
+            f"peak {peak / 2 ** 30:.3f} GiB above the table")
+
+    # 2. the one-program path: run_challenge(fused=True), one CUDA graph
+    get_tracer().clear()
+    cfg = ChallengeConfig(scale=SCALE, method="hash", fused=True,
+                          n_windows=N_WINDOWS, ip_bins=IP_BINS, workdir=workdir,
+                          device=str(dev))
+    graph_counts = {}
+    reset_launches()
+    with capture_counts(graph_counts):
+        run = run_challenge(cfg)
+    # the warm pass, the timed analyze, the eager program, the capture
+    check_launches("fused", histogram=4)
+    if graph_counts["per_replay"] != {**off, "histogram": 1}:
+        raise AssertionError(f"fused: the capture launched "
+                             f"{graph_counts['per_replay']}, not one histogram")
+    if graph_counts["sync_debug_mode"] != 2:
+        raise AssertionError("fused: the capture ran without the sync check")
+    equal_results("fused replay", run.fused_results, results_to_numpy(run.results))
+    if verify_scalars_of(run.fused_results, ref):
+        raise AssertionError("fused replay: scalars disagree with the oracle")
+    spans = {r["name"]: r["duration_s"] for r in get_tracer().records()
+             if r.get("kind") == "span" and r.get("parent") == "challenge"}
+    eager = spans["build_device"] + spans["anonymize"] + spans["analyze"]
+    summary["fused"] = {"fused_s": run.timings.fused_s, "eager_sum_s": eager,
+                        "build_device_s": spans["build_device"],
+                        "anonymize_s": spans["anonymize"],
+                        "analyze_s": spans["analyze"],
+                        "per_replay": graph_counts["per_replay"]}
+    log(run.timings.format_table())
+    log(f"[fused] replay bit-equal to the phases, scalars match the oracle; "
+        f"fused_s {run.timings.fused_s:.4f} against build_device + anonymize + "
+        f"analyze {eager:.4f} s; per replay {graph_counts['per_replay']}; "
+        "captured under set_sync_debug_mode('error')")
+    del run
+
+    # 3. the query surface on the anonymized table against the oracle
+    checks = {name: getattr(q, name)(table).as_dict() for name in (
+        "run_all_queries", "run_all_queries_csr", "run_all_queries_naive")}
+    checks["per_query"] = {
+        "valid_packets": q.valid_packets(table),
+        "unique_links": q.unique_links(table),
+        "max_link_packets": q.max_link_packets(table),
+        "n_unique_sources": q.unique_sources(table).n_unique,
+        "n_unique_destinations": q.unique_destinations(table).n_unique,
+        "n_unique_ips": q.unique_ips(table).n_unique,
+        "max_source_packets": q.max_source_packets(table),
+        "max_source_fanout": q.max_source_fanout(table),
+        "max_destination_packets": q.max_destination_packets(table),
+        "max_destination_fanin": q.max_destination_fanin(table),
+    }
+    for name, got in checks.items():
+        bad = {k: (int(got[k]), v) for k, v in ref.items() if int(got[k]) != v}
+        if bad or got.keys() != ref.keys():
+            raise AssertionError(f"{name}: (port, oracle) disagree: {bad}")
+    log(f"[queries] {', '.join(checks)} equal the NumPy oracle")
+
+    # 4. components with the transpose sorted from the CSR, at scale 20
+    acfg = ChallengeConfig(scale=ALGO_SCALE, workdir=workdir, device=str(dev))
+    src, dst, win, n = build_columns(read_phase(acfg, workdir), acfg)
+    t20 = anonymize(table_from_numpy({"src": src, "dst": dst, "win": win}, n, dev),
+                    method="hash").table
+    csr_src, csr_dst = q.table_csrs(t20)
+    nv, n_live = 2 * t20.capacity, q.unique_ips(t20).n_unique
+    reset_launches()
+    cc = connected_components(csr_src, nv, n_live=n_live)
+    check_launches("components_no_transpose",
+                   segment_max=2 * int(cc.iterations))
+    given = connected_components(csr_src, nv, csr_t=csr_dst, n_live=n_live)
+    if not (torch.equal(cc.labels, given.labels)
+            and int(cc.n_components) == int(given.n_components)):
+        raise AssertionError("components(csr_t=None) != components(csr_t=csr_dst)")
+    log(f"[components] csr_t=None equals csr_t=csr_dst: {int(cc.n_components):,} "
+        f"components in {int(cc.iterations)} steps, "
+        f"{launches['components_no_transpose']['segment_max']} segment-max launches")
+    del t20, csr_src, csr_dst, cc, given
+
+    # 5. the CLI with --fused (shuffle, the default) at scale 18
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fused_cli_") as cli_dir:
+        reset_launches()
+        with contextlib.redirect_stdout(out):
+            rc = main(["--scale", str(CLI_SCALE), "--fused", "--workdir", cli_dir])
+        check_launches("cli_fused", histogram=4)
+    text = out.getvalue()
+    log(text)
+    if rc != 0 or "fused(b+a+a)" not in text or (
+            "all scalar queries match the NumPy oracle" not in text):
+        raise AssertionError(f"the CLI with --fused exited {rc} or left out the "
+                             "fused row or the oracle line")
+    log("[cli --fused] exit 0, the fused(b+a+a) row and the oracle line")
+    return launches, summary
+
+
+def verify_scalars_of(results, ref) -> int:
+    """Scalars of ``results`` that disagree with the oracle ``ref``."""
+    return sum(int(getattr(results.scalars, k)) != v for k, v in ref.items())
 
 
 def _visible_keys(lq, lkv, causal, window):
@@ -1803,41 +2059,47 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         log(f"\n== phase 3: main path, run_challenge at scale {SCALE}, "
             "then the sketch tier")
-        main_launches, sketch_s, capture, ref = main_path(dev, workdir)
+        main_launches, sketch_s, capture, ref, table3 = main_path(dev, workdir)
         log(f"\n== phase 4: the graph-algorithm pass at scale {ALGO_SCALE}")
         algo_launches, alone_launches, algo_ms = algorithm_pass(dev, workdir)
 
-    log(f"\n== phase 5: the CLI with --algorithms --tier both, scale {CLI_SCALE}")
-    cli_launches = cli_algorithms_and_sketch()
+        log(f"\n== phase 5: the CLI with --algorithms --tier both, scale "
+            f"{CLI_SCALE}")
+        cli_launches = cli_algorithms_and_sketch()
 
-    t0 = time.perf_counter()
-    log("\n== phase 6: attention and segment-sum kernels against their plain "
-        "versions")
-    for name, fn in (("flash_attention", check_attention),
-                     ("segment_matmul", check_segment_sum)):
-        checks[name] = fn(dev)
-        for s in checks[name][1]:
-            log("  " + json.dumps(s))
-    segsum_launches = segment_reduce_path(dev)
-    torch.cuda.empty_cache()
-    t1 = time.perf_counter()
-    log(f"\n== phase 7: LM serving, granite-8b at full size, {SERVE_BATCH} x "
-        f"{SERVE_PROMPT} prompt tokens, {SERVE_STEPS} decode steps")
-    serve_launches, serve = serve_granite(dev)
-    torch.cuda.empty_cache()
-    t2 = time.perf_counter()
-    log(f"\n== phase 8: the streaming engine, phase 3's capture in micro-batches "
-        f"of {STREAM_BATCH:,} rows")
-    stream_launches, stream = stream_engine(dev, capture, ref)
-    log(f"phase 6 took {t1 - t0:.1f} s, phase 7 {t2 - t1:.1f} s, phase 8 "
-        f"{time.perf_counter() - t2:.1f} s")
+        t0 = time.perf_counter()
+        log("\n== phase 6: attention and segment-sum kernels against their "
+            "plain versions")
+        for name, fn in (("flash_attention", check_attention),
+                         ("segment_matmul", check_segment_sum)):
+            checks[name] = fn(dev)
+            for s in checks[name][1]:
+                log("  " + json.dumps(s))
+        segsum_launches = segment_reduce_path(dev)
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        log(f"\n== phase 7: LM serving, granite-8b at full size, {SERVE_BATCH} x "
+            f"{SERVE_PROMPT} prompt tokens, {SERVE_STEPS} decode steps")
+        serve_launches, serve = serve_granite(dev)
+        torch.cuda.empty_cache()
+        t2 = time.perf_counter()
+        log(f"\n== phase 8: the streaming engine, phase 3's capture in "
+            f"micro-batches of {STREAM_BATCH:,} rows")
+        stream_launches, stream = stream_engine(dev, capture, ref)
+        t3 = time.perf_counter()
+        log(f"\n== phase 9: the A/B baselines, the query surface and --fused "
+            f"on phase 3's table (scale {SCALE})")
+        ab_launches, ab = ab_baselines_and_fused(dev, workdir, table3, ref)
+        del table3
+        log(f"phase 6 took {t1 - t0:.1f} s, phase 7 {t2 - t1:.1f} s, phase 8 "
+            f"{t3 - t2:.1f} s, phase 9 {time.perf_counter() - t3:.1f} s")
 
     # launches of the main path's runs only; the algorithms timed alone and
     # the comparisons with the plain versions are counted nowhere
     by_kernel = lambda k, runs: {r: v[k] for r, v in runs.items() if v[k]}
     launches = {**main_launches, "algorithms": algo_launches, "cli": cli_launches,
                 "segment_reduce": segsum_launches, "serve": serve_launches,
-                **stream_launches}
+                **stream_launches, **ab_launches}
     hll_shape = [s for s in checks["segment_max"][1] if s["case"].startswith("h:")]
     kernels = [
         record("histogram", "src/repro_torch/kernels/csrc/histogram.cu",
@@ -1864,7 +2126,7 @@ def main() -> int:
             raise AssertionError(f"{rec['name']}: no launch on the main path")
     log(json.dumps({"sketch_tier_s": sketch_s, "algorithms_alone_ms": algo_ms,
                     "algorithms_alone_launches": alone_launches, "serve": serve,
-                    "stream": stream}))
+                    "stream": stream, "ab_and_fused": ab}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -24,11 +24,17 @@ work.  The warm pass (``ChallengeConfig.warm``) runs every phase once before
 the timed pass; it builds the CUDA kernel and warms the allocator, and its
 wall is reported as ``compile_s``.
 
-Not ported yet: ``fused=True`` (one program for the compute phases) and
-``distributed=True`` (ROADMAP.md queue 1 items 4 and 10).
+``fused=True`` also times build's device part, anonymize and analyze as one
+program (``fused_s``), the counterpart of the reference's one jitted,
+donated program: on the card one CUDA graph of the three
+(:func:`fused_program`).  ``analyze(use_plan=False)`` and
+``windowed_method="grid"`` are the A/B baselines of the sort-once plan and
+of the CSR windowed suite.  ``distributed=True`` is not ported yet
+(ROADMAP.md queue 1 item 10).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import tempfile
@@ -40,25 +46,30 @@ import torch
 from ..convert import table_from_numpy
 from ..core.algorithms import AlgorithmResults, graph_algorithms
 from ..core.anonymize import anonymize
-from ..core.ops import GroupResult, UniqueResult, factorize, mix32
-from ..core.plan import lead_fanout, lead_groups, link_groups, unique_lead
+from ..core.ops import (GroupResult, UniqueResult, factorize, groupby_aggregate,
+                        mix32, semi_join, unique)
+from ..core.plan import (SortedEdges, lead_fanout, lead_groups, link_groups,
+                         unique_lead)
 from ..core.queries import (
     QueryResults,
     TopLinks,
+    naive_groups,
     packet_weights,
+    run_all_queries_naive,
     scalar_queries_from_plans,
     table_csrs,
     table_plans,
+    top_links,
     top_links_from_plan,
     traffic_matrix,
     unique_ips,
 )
 from ..core.table import Table, resolve_device
-from ..core.temporal import windowed_queries
+from ..core.temporal import windowed_queries, windowed_queries_naive
 from ..data import pcaplite
 from ..data.plq import read_plq, write_plq
 from ..data.rmat import synthetic_packets
-from ..kernels.ops import windowed_histogram
+from ..kernels.ops import histogram, windowed_histogram
 from ..obs import span as obs_span
 
 __all__ = [
@@ -66,9 +77,12 @@ __all__ = [
     "ChallengePhaseTimings",
     "ChallengeResults",
     "ChallengeRun",
+    "algorithm_pass",
     "analyze",
     "build_columns",
     "cross_window_ip_overlap",
+    "cross_window_ip_overlap_naive",
+    "fused_program",
     "read_phase",
     "run_challenge",
     "timings_from_spans",
@@ -100,6 +114,7 @@ class ChallengeConfig:
     seed: int = 0
     fmt: str = "plq"                     # 'plq' | 'pcaplite'
     backend: str = "auto"                # histogram dispatch: auto|torch|cuda
+    fused: bool = False                  # also time the one-program path
     fused_epilogue: bool = False         # kernel epilogues in analyze
     algorithms: bool = False             # BFS/CC/PageRank/triangles pass
     bfs_source: int = 0                  # BFS source (anonymized vertex id)
@@ -139,11 +154,25 @@ class ChallengePhaseTimings:
     build_s: float
     anonymize_s: float
     analyze_s: float
+    fused_s: Optional[float] = None      # one-program build+anonymize+analyze
     compile_s: Optional[float] = None    # warm pass, excluded from the walls
 
     @property
     def total_s(self) -> float:
         return self.read_s + self.build_s + self.anonymize_s + self.analyze_s
+
+    def packets_per_s(self, phase: str = "total") -> float:
+        s = self.total_s if phase == "total" else getattr(self, f"{phase}_s")
+        return self.n_packets / s if s and s > 0 else float("inf")
+
+    def as_dict(self) -> Dict[str, float]:
+        d = {f"{p}_s": getattr(self, f"{p}_s") for p in PHASES}
+        d["total_s"] = self.total_s
+        if self.fused_s is not None:
+            d["fused_s"] = self.fused_s
+        if self.compile_s is not None:
+            d["compile_s"] = self.compile_s
+        return d
 
     def format_table(self) -> str:
         rows = [f"{'phase':12s}{'seconds':>12s}{'packets/sec':>16s}"]
@@ -154,6 +183,11 @@ class ChallengePhaseTimings:
             f"{'total':12s}{self.total_s:12.4f}"
             f"{self.n_packets / max(self.total_s, 1e-12):16,.0f}"
         )
+        if self.fused_s is not None:
+            rows.append(
+                f"{'fused(b+a+a)':12s}{self.fused_s:12.4f}"
+                f"{self.n_packets / max(self.fused_s, 1e-12):16,.0f}"
+            )
         if self.compile_s is not None:
             rows.append(f"{'(warm pass)':12s}{self.compile_s:12.4f}"
                         f"{'excluded above':>16s}")
@@ -187,6 +221,7 @@ def timings_from_spans(records) -> ChallengePhaseTimings:
         build_s=dur("build_host") + dur("build_device"),
         anonymize_s=dur("anonymize"),
         analyze_s=dur("analyze"),
+        fused_s=dur("fused") if "fused" in last else None,
         compile_s=dur("compile") if "compile" in last else None,
     )
 
@@ -225,7 +260,9 @@ class ChallengeRun:
     """A finished run: device results, timings, the host capture columns and
     the anonymized table the analyze phase ran on; ``anon_columns`` (with
     ``config.algorithms``) holds its live ``src``/``dst`` on the host, the
-    edge list the graph oracles replay."""
+    edge list the graph oracles replay; ``fused_results`` (with
+    ``config.fused``) what the one-program path computed, equal to
+    ``results``."""
 
     results: ChallengeResults
     timings: ChallengePhaseTimings
@@ -233,6 +270,7 @@ class ChallengeRun:
     config: ChallengeConfig
     anon_table: Table
     anon_columns: Optional[Dict[str, np.ndarray]] = None
+    fused_results: Optional[ChallengeResults] = None
 
 
 def read_phase(cfg: ChallengeConfig, workdir: str) -> Dict[str, np.ndarray]:
@@ -286,15 +324,15 @@ def cross_window_ip_overlap(
     Every endpoint's rank in the sorted distinct-IP domain (``unique_ips``,
     the plan's shared concat sort) is a binary search, so per-window
     activity is a presence vector over IP ranks and adjacent-window AND +
-    popcount answers the question with zero further sorts.  The loop keeps
-    ONE window's presence vector live (O(ip_capacity) memory).  Rows with a
-    window id out of range are dropped; overlap[0] == 0.  The dense
-    ``method="grid"`` baseline is not ported yet (ROADMAP.md queue 1 item 4).
+    popcount answers the question with zero further sorts.
+    ``method="scan"`` (default) loops over the windows keeping ONE window's
+    presence vector live (O(ip_capacity) memory); ``method="grid"`` sets
+    the whole ``(n_windows + 1, ip_capacity + 1)`` presence grid at once,
+    the dense A/B baseline, bit-identical.  Rows with a window id out of
+    range are dropped; overlap[0] == 0.
     """
-    if method != "scan":
-        raise NotImplementedError(
-            f"overlap method {method!r} is not ported yet (ROADMAP.md queue 1 "
-            "item 4); use method='scan'")
+    if method not in ("scan", "grid"):
+        raise ValueError(f"unknown overlap method {method!r}")
     if ips is None:
         ips = unique_ips(t)
     ip_cap = ips.values.shape[0]
@@ -302,16 +340,48 @@ def cross_window_ip_overlap(
     win = torch.where(in_range, t["win"], n_windows)
     r_src = torch.clamp(factorize(t["src"], ips.values), max=ip_cap).long()
     r_dst = torch.clamp(factorize(t["dst"], ips.values), max=ip_cap).long()
+    if method == "grid":
+        grid = torch.zeros((n_windows + 1) * (ip_cap + 1), dtype=torch.bool,
+                           device=t.device)
+        row = win.long() * (ip_cap + 1)
+        grid.index_fill_(0, row + r_src, True)
+        grid.index_fill_(0, row + r_dst, True)
+        live = grid.view(n_windows + 1, ip_cap + 1)[:n_windows, :ip_cap]
+        overlap = (live[1:] & live[:-1]).sum(dim=1, dtype=torch.int32)
+        return torch.cat([torch.zeros(1, dtype=torch.int32, device=t.device),
+                          overlap])
     prev = torch.zeros(ip_cap, dtype=torch.bool, device=t.device)
     overlap = []
     for w in range(n_windows):
         cur = torch.zeros(ip_cap + 1, dtype=torch.bool, device=t.device)
-        cur[torch.where(win == w, r_src, ip_cap)] = True
-        cur[torch.where(win == w, r_dst, ip_cap)] = True
+        # index_fill_, not cur[idx] = True: the setitem copies its scalar
+        # from the host, which synchronizes
+        cur.index_fill_(0, torch.where(win == w, r_src, ip_cap), True)
+        cur.index_fill_(0, torch.where(win == w, r_dst, ip_cap), True)
         cur = cur[:ip_cap]
         overlap.append((prev & cur).sum(dtype=torch.int32))
         prev = cur
     return torch.stack(overlap)
+
+
+def cross_window_ip_overlap_naive(t: Table, n_windows: int,
+                                  backend: str = "auto") -> torch.Tensor:
+    """Pre-plan overlap, the A/B baseline: the distinct (window, ip) pairs
+    of both endpoints (one group-by sort), a semi-join of (w, ip) against
+    (w' + 1, ip) that sorts them again (two passes: the side flag is a
+    third key), and one histogram launch counting the members per window
+    (ids of non-members -1, no weights).  Window ids >= n_windows are
+    dropped by the histogram, as the plan path drops them."""
+    valid = t.valid_mask()
+    wip = groupby_aggregate(
+        [torch.cat([t["win"], t["win"]]), torch.cat([t["src"], t["dst"]])],
+        None, valid_mask=torch.cat([valid, valid]))
+    member = semi_join(
+        [wip.keys[0], wip.keys[1]], [wip.keys[0] + 1, wip.keys[1]],
+        left_n_valid=wip.n_groups, right_n_valid=wip.n_groups)
+    counts = histogram(torch.where(member, wip.keys[0], -1), n_windows,
+                       backend=backend)
+    return counts.to(torch.int32)
 
 
 def _window_activity(t: Table, n_windows: int, ip_bins: int,
@@ -334,17 +404,27 @@ def analyze(
     ip_bins: int,
     k: int,
     backend: str = "auto",
+    use_plan: bool = True,
     windowed_method: str = "csr",
     fused_epilogue: bool = False,
     algorithms: bool = False,
     bfs_source: int = 0,
     device="cuda",
     window_activity: Optional[torch.Tensor] = None,
+    plans: Optional[Tuple[SortedEdges, SortedEdges]] = None,
 ) -> ChallengeResults:
     """Every challenge statistic off THREE sorts: the packed src-leading
     (src, dst) sort, the mirrored dst-leading sort and the half-domain
     concat sort of ``unique_ips`` (held by ``core.plan.SortCounter`` in the
-    tests).  ``t`` must already be on ``device``.
+    tests).  ``t`` must already be on ``device``; ``plans`` is its plan
+    pair when the caller already built it (then one sort runs here).
+
+    ``windowed_method="grid"`` runs the windowed suite and the
+    cross-window overlap on dense grids, the A/B baseline of the CSR path
+    (O(n_windows x capacity) memory against O(nnz)).  ``use_plan=False``
+    runs the pre-plan formulation, one group-by sort per query family
+    (18 sorts here), the A/B baseline of the sort-once plan.  Every path
+    returns bit-identical results.
 
     ``fused_epilogue=True`` routes the windowed suite's per-window select and
     the top-k pre-mask through the histogram kernel's gate and
@@ -365,7 +445,21 @@ def analyze(
     if t.device != device:
         raise ValueError(f"table is on {t.device}, analyze was asked to run "
                          f"on {device}")
-    plans = table_plans(t)
+    if window_activity is None:
+        window_activity = _window_activity(t, n_windows, ip_bins, backend)
+    if not use_plan:
+        if algorithms:
+            raise ValueError(
+                "algorithms=True requires the plan path (use_plan=True): "
+                "the pass is defined off the plan's zero-sort CSR pair")
+        if fused_epilogue:
+            raise ValueError(
+                "fused_epilogue=True requires the plan path (use_plan=True):"
+                " the epilogues fuse into the plan's shared reductions")
+        return _analyze_naive(t, n_windows=n_windows, k=k, backend=backend,
+                              window_activity=window_activity)
+    if plans is None:
+        plans = table_plans(t)
     plan_src, plan_dst = plans
     ips = unique_ips(t)
     links = link_groups(plan_src)
@@ -373,14 +467,9 @@ def analyze(
     per_dst = lead_groups(plan_dst)
     fanout = lead_fanout(plan_src)
     fanin = lead_fanout(plan_dst)
-    algo = None
-    if algorithms:
-        csr_src, csr_dst = table_csrs(t, plans)
-        algo = graph_algorithms(csr_src, csr_dst, 2 * t.capacity,
-                                n_live=ips.n_unique, source=bfs_source,
-                                backend=backend)
     return ChallengeResults(
-        algorithms=algo,
+        algorithms=(algorithm_pass(t, plans, ips.n_unique, bfs_source, backend)
+                    if algorithms else None),
         scalars=scalar_queries_from_plans(
             t, plan_src, plan_dst, ips, links=links, per_src=per_src,
             per_dst=per_dst, fanout=fanout, fanin=fanin,
@@ -398,9 +487,48 @@ def analyze(
         windowed=windowed_queries(t, 1, n_windows, ts_col="win", t0=0,
                                   plans=plans, method=windowed_method,
                                   fused=fused_epilogue, backend=backend),
-        window_activity=(_window_activity(t, n_windows, ip_bins, backend)
-                         if window_activity is None else window_activity),
-        window_ip_overlap=cross_window_ip_overlap(t, n_windows, ips=ips),
+        window_activity=window_activity,
+        window_ip_overlap=cross_window_ip_overlap(
+            t, n_windows, ips=ips,
+            method="scan" if windowed_method == "csr" else "grid"),
+    )
+
+
+def algorithm_pass(t: Table, plans: Tuple[SortedEdges, SortedEdges], n_live,
+                   bfs_source: int = 0, backend: str = "auto") -> AlgorithmResults:
+    """BFS, components, PageRank and triangles over the zero-sort CSR pair
+    of ``t``'s plans, on the vertex domain ``[0, 2 * capacity)`` with
+    ``n_live`` live vertices (the distinct IPs): ``analyze(algorithms=True)``'s
+    pass.  It reads the host after every step, so the one-program path
+    runs it after its graph (:func:`run_challenge`)."""
+    csr_src, csr_dst = table_csrs(t, plans)
+    return graph_algorithms(csr_src, csr_dst, 2 * t.capacity, n_live=n_live,
+                            source=bfs_source, backend=backend)
+
+
+def _analyze_naive(t: Table, *, n_windows: int, k: int, backend: str,
+                   window_activity: torch.Tensor) -> ChallengeResults:
+    """Pre-plan analyze: one group-by sort per query family.  Under ``jit``
+    the reference leaves XLA's CSE to dedupe the group-bys its query
+    functions repeat; the eager port computes each distinct group-by once
+    (``queries.naive_groups``) and hands it to the scalar suite and the
+    top-k, which is what that dedup leaves.  18 sorts: the five groups,
+    ``unique_ips``, the two ``unique``s, the top-k, six in the windowed
+    suite and three in the overlap."""
+    g = naive_groups(t)
+    return ChallengeResults(
+        scalars=run_all_queries_naive(t, g),
+        links=g.links,
+        per_source=g.per_src,
+        per_destination=g.per_dst,
+        source_fanout=g.fanout,
+        destination_fanin=g.fanin,
+        unique_sources=unique(t["src"], n_valid=t.n_valid),
+        unique_destinations=unique(t["dst"], n_valid=t.n_valid),
+        top=top_links(t, k, g.links),
+        windowed=windowed_queries_naive(t, 1, n_windows, ts_col="win", t0=0),
+        window_activity=window_activity,
+        window_ip_overlap=cross_window_ip_overlap_naive(t, n_windows, backend),
     )
 
 
@@ -433,7 +561,8 @@ def run_challenge(cfg: ChallengeConfig) -> ChallengeRun:
         return anonymize(table, gen, method=cfg.method, rounds=cfg.rounds)
 
     with obs_span("challenge", scale=cfg.scale, n_packets=cfg.packets,
-                  fmt=cfg.fmt, warm=cfg.warm, device=str(device)) as sp_chal:
+                  fmt=cfg.fmt, fused=cfg.fused, warm=cfg.warm,
+                  device=str(device)) as sp_chal:
         with obs_span("read") as sp_read:
             capture = read_phase(cfg, workdir)
 
@@ -469,10 +598,136 @@ def run_challenge(cfg: ChallengeConfig) -> ChallengeRun:
             compile_s=sp_compile.duration_s if sp_compile is not None else None,
         )
 
+        fused_results = None
+        if cfg.fused:
+            timings.fused_s, fused_results = _time_fused(
+                cfg, (src, dst, win), n, kw, device)
+
     anon_columns = None
     if cfg.algorithms:
         anon_columns = {c: anon.table[c][:n].cpu().numpy().astype(np.int64)
                         for c in ("src", "dst")}
     return ChallengeRun(results=results, timings=timings, capture=capture,
                         config=cfg, anon_table=anon.table,
-                        anon_columns=anon_columns)
+                        anon_columns=anon_columns, fused_results=fused_results)
+
+
+@contextlib.contextmanager
+def _no_host_sync():
+    """Make any synchronizing CUDA call raise (``set_sync_debug_mode``)."""
+    before = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(before)
+
+
+def fused_program(cfg: ChallengeConfig, columns: Tuple[np.ndarray, ...], n: int,
+                  device, **analyze_kw):
+    """Build's device part (the table and the ``A_t`` group-by), anonymize
+    and ``analyze(**analyze_kw)`` as one program over host columns
+    ``(src, dst, win)`` with ``n`` live rows.  Returns ``run(host)``, which
+    runs it on CPU tensors of the columns' shapes (pinned, on the card) and
+    returns the anonymized table, its plan pair and the results, to be read
+    after a synchronize.
+
+    On the card the program is ONE ``torch.cuda.CUDAGraph``, the
+    counterpart of the reference's one jitted, donated program.  The graph
+    reads static device buffers, which ``run`` fills by ``non_blocking``
+    copies before it replays.  Before the capture the eager program runs
+    once with every host sync an error (it also binds and sets up the
+    kernels, outside the capture); the capture runs under the same rule,
+    and one that fails raises.  The shuffle's generator is registered with
+    the graph and reseeded before each replay, so every replay draws the
+    eager run's permutation.  The replay is warmed once here.  The
+    algorithm pass reads the host after every step and stays out of
+    ``analyze_kw``: run :func:`algorithm_pass` on the output.
+
+    On the CPU no graph exists: ``run`` runs the three phases back to back.
+    """
+    if analyze_kw.get("algorithms"):
+        raise ValueError("the one program holds no algorithm pass; run "
+                         "algorithm_pass on its output")
+    device = resolve_device(device)
+    gen = torch.Generator(device=device) if cfg.method == "shuffle" else None
+
+    def reseed():
+        if gen is not None:
+            gen.manual_seed(cfg.seed)
+
+    def program(cols):
+        table = Table(columns=dict(zip(("src", "dst", "win"), cols)),
+                      n_valid=torch.full((), n, dtype=torch.int32, device=device))
+        traffic_matrix(table)  # build's A_t group-by
+        t = anonymize(table, gen, method=cfg.method, rounds=cfg.rounds).table
+        plans = table_plans(t)
+        return t, plans, analyze(t, plans=plans, device=device, **analyze_kw)
+
+    if device.type != "cuda":
+        def run_eager(host):
+            reseed()
+            return program([h.to(device) for h in host])
+        return run_eager
+
+    pinned = [torch.from_numpy(a).pin_memory() for a in columns]
+    static = [torch.empty(a.shape, dtype=a.dtype, device=device) for a in pinned]
+
+    def upload(host):
+        for d, h in zip(static, host):
+            d.copy_(h, non_blocking=True)
+
+    upload(pinned)
+    reseed()
+    torch.cuda.synchronize(device)
+    with _no_host_sync():
+        program(static)
+    graph = torch.cuda.CUDAGraph()
+    if gen is not None:
+        graph.register_generator_state(gen)
+    reseed()
+    # captured on a side stream, as torch.cuda.graph does, with the sync
+    # check on from the capture's begin to its end
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side), _no_host_sync():
+        graph.capture_begin()
+        try:
+            out = program(static)
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream(device).wait_stream(side)
+
+    def run_graph(host):
+        upload(host)
+        reseed()
+        graph.replay()  # the closure keeps the graph, and its pool, alive
+        return out
+
+    run_graph(pinned)
+    torch.cuda.synchronize(device)
+    return run_graph
+
+
+def _time_fused(cfg: ChallengeConfig, columns: Tuple[np.ndarray, ...], n: int,
+                kw: dict, device: torch.device
+                ) -> Tuple[float, ChallengeResults]:
+    """The ``fused`` span: :func:`fused_program` built and warmed outside
+    it, then, timed, the copies of fresh copies of the columns, one run
+    (on the card a replay), the algorithm pass on its output when asked
+    for, and a synchronize.  Returns the span's seconds and the results,
+    equal to the phases'."""
+    analyze_kw = {k: v for k, v in kw.items()
+                  if k not in ("algorithms", "bfs_source", "device")}
+    run = fused_program(cfg, columns, n, device, **analyze_kw)
+    fresh = [torch.from_numpy(np.copy(a)) for a in columns]
+    if device.type == "cuda":
+        fresh = [h.pin_memory() for h in fresh]
+    with obs_span("fused") as sp:
+        t, plans, res = run(fresh)
+        if kw["algorithms"]:
+            res = dataclasses.replace(res, algorithms=algorithm_pass(
+                t, plans, res.scalars.n_unique_ips, kw["bfs_source"],
+                kw["backend"]))
+        _block(device)
+    return sp.duration_s, res

@@ -7,15 +7,20 @@ oracle — the same report and check as ``python -m repro.challenge.run``.
 ``--algorithms`` adds BFS, connected components, PageRank and triangle
 counts over the anonymized traffic graph, checked against their NumPy
 oracles; ``--tier sketch|both`` adds the bounded-memory sketch tier, each
-estimate checked against its configured error bound.  Runs on the card by
-default; ``--device cpu`` runs the plain versions.
+estimate checked against its configured error bound.  ``--fused`` also
+times build, anonymize and analyze as one program, on the card one CUDA
+graph (the ``fused(b+a+a)`` row; with ``--algorithms`` the graph holds
+``analyze`` without the algorithm pass, which runs after the replay inside
+the same timed span).  Runs on the card by default; ``--device cpu`` runs
+the plain versions.
 
     PYTHONPATH=src python -m repro_torch.challenge.run --scale 20
     PYTHONPATH=src python -m repro_torch.challenge.run --algorithms --tier both
+    PYTHONPATH=src python -m repro_torch.challenge.run --scale 18 --fused
     PYTHONPATH=src python -m repro_torch.challenge.run --scale 9 --windows 2 --device cpu
 
-Flags of the reference whose paths are not ported yet are refused with exit
-status 2 and the ROADMAP.md item that ports them.
+``--distributed`` and ``--autotune`` are refused with exit status 2 and the
+ROADMAP.md item that ports their paths.
 """
 from __future__ import annotations
 
@@ -45,7 +50,6 @@ from .pipeline import ChallengeConfig, ChallengeRun, run_challenge
 
 # flag -> (is it set?, the ROADMAP.md item that ports its path)
 _UNPORTED = {
-    "--fused": (lambda a: a.fused, "queue 1 item 4 (the one-program path)"),
     "--distributed": (lambda a: a.distributed, "queue 1 item 10"),
     "--autotune": (lambda a: a.autotune, "queue 1 item 9"),
 }
@@ -331,6 +335,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                          "card, the plain version on the CPU")
     ap.add_argument("--device", default="cuda",
                     help="where the table lives and the compute phases run")
+    ap.add_argument("--fused", action="store_true",
+                    help="also time build+anonymize+analyze as one program "
+                         "(one CUDA graph on the card)")
     ap.add_argument("--fused-epilogue", action="store_true",
                     help="route the analyze windowed/top-k scatter chains "
                          "through the histogram kernel's epilogues "
@@ -358,7 +365,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--no-verify", dest="verify", action="store_false",
                     help="skip the NumPy-oracle scalar check")
     # the reference's flags whose paths are not ported: refused below
-    ap.add_argument("--fused", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--distributed", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--autotune", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -371,7 +377,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             scale=args.scale, n_packets=args.n_packets, n_windows=args.windows,
             ip_bins=args.ip_bins, top_k=args.top_k, method=args.method,
             rounds=args.rounds, seed=args.seed, fmt=args.format,
-            backend=args.backend, fused_epilogue=args.fused_epilogue,
+            backend=args.backend, fused=args.fused,
+            fused_epilogue=args.fused_epilogue,
             algorithms=args.algorithms, bfs_source=args.bfs_source,
             workdir=args.workdir, device=args.device,
         )

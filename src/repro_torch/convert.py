@@ -45,7 +45,8 @@ def table_from_numpy(columns: Mapping[str, np.ndarray], n_valid: int,
     return Table(
         columns={k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
                  for k, v in columns.items()},
-        n_valid=torch.tensor(int(n_valid), dtype=torch.int32, device=device),
+        # a fill on the device, not a blocking copy of a host scalar
+        n_valid=torch.full((), int(n_valid), dtype=torch.int32, device=device),
     )
 
 

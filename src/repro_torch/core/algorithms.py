@@ -33,7 +33,8 @@ import torch
 
 from ..kernels.ops import segmented_reduce
 from .ops import _iota
-from .sparse import CsrMatrix, degrees, gather_rows, reduce_rows, scatter_rows, vxm
+from .sparse import (CsrMatrix, degrees, gather_rows, reduce_rows, scatter_rows,
+                     transpose, vxm)
 
 __all__ = [
     "FixedPoint",
@@ -205,16 +206,12 @@ def connected_components(
 
     Labels start as own vertex ids; each step takes the min over both edge
     directions (``A`` and ``A^T``) and self, so ``csr_t`` (the challenge's
-    dst-keyed CSR) gives weak connectivity with no sort.  ``csr_t=None``
-    needs ``transpose``, which is not ported yet (ROADMAP.md queue 1 item
-    2), and raises.  Converges in at most diameter + 1 steps (cap:
-    ``n_vertices``).
+    dst-keyed CSR) gives weak connectivity with no sort; ``csr_t=None``
+    builds it with :func:`repro_torch.core.sparse.transpose` (one sort).
+    Converges in at most diameter + 1 steps (cap: ``n_vertices``).
     """
     if csr_t is None:
-        raise NotImplementedError(
-            "connected_components(csr_t=None) needs sparse.transpose, which "
-            "is not ported yet (ROADMAP.md queue 1 item 2); pass the "
-            "transpose, e.g. the dst-keyed CSR of queries.table_csrs")
+        csr_t, _ = transpose(csr)
     n = int(n_vertices)
     cap = n if max_iters is None else max_iters
     device = csr.indptr.device

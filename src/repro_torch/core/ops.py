@@ -1,5 +1,6 @@
-"""Relational primitives — the port of ``repro/core/ops.py`` (the plan path,
-``isin`` and the sort by three or more keys).
+"""Relational primitives — the port of ``repro/core/ops.py``: the packed
+sort, group-by, ``unique``/``value_counts``/``drop_duplicates``, ``isin``,
+``semi_join``, top-k and the permutations.
 
 Every op keeps the reference's static-shape contract: arrays of a fixed
 ``capacity`` with the first ``n_valid`` rows live, results tail-padded with
@@ -40,8 +41,12 @@ __all__ = [
     "GroupResult",
     "groupby_aggregate",
     "UniqueResult",
+    "unique",
+    "value_counts",
+    "drop_duplicates",
     "factorize",
     "isin",
+    "semi_join",
     "masked_max",
     "clamp_k",
     "top_k",
@@ -57,9 +62,14 @@ _I64_MAX = torch.iinfo(torch.int64).max
 
 
 def _count(n, cap: int, device) -> torch.Tensor:
-    """A live-row count as a 0-d int32 tensor on ``device`` (None = cap)."""
-    return torch.as_tensor(cap if n is None else n, dtype=torch.int32,
-                           device=device)
+    """A live-row count as a 0-d int32 tensor on ``device`` (None = cap).
+    A Python int becomes one by a fill on the device, not by a copy from
+    the host, which would synchronize (and cannot be captured in a CUDA
+    graph)."""
+    if isinstance(n, torch.Tensor):
+        return n.to(device=device, dtype=torch.int32)
+    return torch.full((), cap if n is None else int(n), dtype=torch.int32,
+                      device=device)
 
 
 def _iota(n: int, device) -> torch.Tensor:
@@ -330,6 +340,34 @@ class UniqueResult:
     weight_sums: Optional[torch.Tensor]
     n_unique: torch.Tensor  # 0-d int32
 
+    def mask(self) -> torch.Tensor:
+        return _iota(self.values.shape[0], self.n_unique.device) < self.n_unique
+
+
+def unique(
+    x: torch.Tensor,
+    n_valid=None,
+    weights: Optional[torch.Tensor] = None,
+    valid_mask: Optional[torch.Tensor] = None,
+) -> UniqueResult:
+    """``np.unique(return_counts=True)`` with static shapes: one group-by
+    sort, ``weights`` summed per value when given."""
+    values = {"w": (weights, "sum")} if weights is not None else None
+    g = groupby_aggregate([x], values, n_valid=n_valid, count_name="count",
+                          valid_mask=valid_mask)
+    return UniqueResult(values=g.keys[0], counts=g.aggs["count"],
+                        weight_sums=g.aggs.get("w"), n_unique=g.n_groups)
+
+
+def value_counts(x: torch.Tensor, n_valid=None) -> UniqueResult:
+    """``df[col].value_counts()`` (in value order; counts + mask)."""
+    return unique(x, n_valid=n_valid)
+
+
+def drop_duplicates(keys: Sequence[torch.Tensor], n_valid=None) -> GroupResult:
+    """``df[cols].drop_duplicates()`` — the distinct key rows."""
+    return groupby_aggregate(keys, None, n_valid=n_valid, count_name="count")
+
 
 def factorize(x: torch.Tensor, sorted_uniques: torch.Tensor) -> torch.Tensor:
     """Rank of each element of ``x`` in the tail-padded ascending
@@ -353,6 +391,50 @@ def isin(
     safe = torch.clamp(pos, max=sorted_uniques.shape[0] - 1).long()
     hit = (pos < _count(n_uniques, 0, device)) & (sorted_uniques[safe] == x)
     return hit & (_iota(cap, device) < _count(n_valid, cap, device))
+
+
+def semi_join(
+    left_keys: Sequence[torch.Tensor],
+    right_keys: Sequence[torch.Tensor],
+    left_n_valid=None,
+    right_n_valid=None,
+) -> torch.Tensor:
+    """Multi-key semi-join membership: does left row i appear in right?
+
+    The engine's sort-merge: both sides concatenated with a side flag
+    (left 1, right 0), sorted by (keys..., flag), and every equal-key run
+    whose least flag is 0 holds a right row, so its left rows are members.
+    The flag is one more sort key, so two keys plus the flag take the two
+    stable passes of :func:`multi_key_sort` where the reference sorts once.
+    Returns a (left_capacity,) bool mask, False on left padding rows.
+    """
+    lcap = left_keys[0].shape[0]
+    rcap = right_keys[0].shape[0]
+    device = left_keys[0].device
+    l_nv = _count(left_n_valid, lcap, device)
+    r_nv = _count(right_n_valid, rcap, device)
+    both = [torch.cat([l, r]) for l, r in zip(left_keys, right_keys)]
+    is_left = torch.cat([torch.ones(lcap, dtype=torch.int32, device=device),
+                         torch.zeros(rcap, dtype=torch.int32, device=device)])
+    idx = torch.cat([_iota(lcap, device),
+                     torch.full((rcap,), lcap, dtype=torch.int32, device=device)])
+    pos = _iota(lcap + rcap, device)
+    valid = torch.where(pos < lcap, pos < l_nv, pos - lcap < r_nv)
+
+    skeys_and_side, (s_idx,) = multi_key_sort([*both, is_left], [idx],
+                                              valid_mask=valid)
+    *skeys, s_is_left = skeys_and_side
+    n_total = l_nv + r_nv
+    live = pos < n_total
+    seg, _, _ = segment_ids_from_sorted(skeys, n_total)
+    # a run is hit iff it holds a right row (side flag 0 -> run min 0)
+    run_min_side = _segment_extreme(
+        torch.where(live, s_is_left, 1), seg, lcap + rcap + 1, "amin",
+        _max_ident(torch.int32))
+    member = (run_min_side[seg.long()] == 0) & (s_is_left == 1) & live
+    # non-members go to the dump slot lcap, as the reference's .at[].set
+    out = torch.zeros(lcap + 1, dtype=torch.bool, device=device)
+    return out.scatter_(0, torch.where(member, s_idx, lcap).long(), member)[:lcap]
 
 
 def masked_max(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

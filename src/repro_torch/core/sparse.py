@@ -1,23 +1,21 @@
-"""Static-shape CSR traffic matrices — the port of the subset of
-``repro/core/sparse.py`` that the graph-algorithm pass and the streaming
-engine run.
+"""Static-shape CSR traffic matrices — the port of ``repro/core/sparse.py``.
 
 :class:`CsrMatrix` keeps the reference's static-shape discipline: every
 buffer has a fixed capacity, validity is the row-pointer prefix
 (``indptr[r] == nnz`` for every padding row), entry tails are padding
 (column key = dtype max, value 0).  :func:`csr_from_plan` builds one off a
 ``SortedEdges`` plan with scatters only, zero sorts.  The GraphBLAS-lite
-operations are :func:`reduce_rows`, :func:`degrees`, the masked semiring
+operations are :func:`reduce_rows`, :func:`reduce_cols`, :func:`degrees`,
+the masked semiring
 products :func:`mxv`/:func:`vxm` (their reduction goes through the kernels
 of :mod:`repro_torch.kernels.ops`: the histogram kernel for plus, the
 segment-max kernel for max, and for min by negation) and the bridges
 :func:`gather_rows`/:func:`scatter_rows` between vertex and row-slot
 domains.  The duplicate-collapsing constructor :func:`from_coo` (one sort,
 two passes for a two-column row key; overflow counted) and the CSR union
-:func:`ewise_union` carry the streaming engine's upsert and merge.
-
-Not ported yet (ROADMAP.md queue 1 item 2): ``transpose``, ``symmetrize``
-and ``reduce_cols``, which no path of the port runs.
+:func:`ewise_union` carry the streaming engine's upsert and merge;
+:func:`transpose` (one ``from_coo`` sort) and :func:`symmetrize` (A ⊕ A^T
+through ``ewise_union``) are built on them.
 
 One difference from JAX shapes the code: under ``jit`` XLA shares the
 binary search of :meth:`CsrMatrix.entry_rows` between every use, but an
@@ -52,9 +50,12 @@ __all__ = [
     "from_coo",
     "ewise_union",
     "reduce_rows",
+    "reduce_cols",
     "degrees",
     "mxv",
     "vxm",
+    "transpose",
+    "symmetrize",
     "gather_rows",
     "scatter_rows",
 ]
@@ -285,6 +286,24 @@ def reduce_rows(csr: CsrMatrix, op: str = "plus") -> torch.Tensor:
     raise ValueError(f"unknown monoid {op!r}")
 
 
+def reduce_cols(csr: CsrMatrix, num_cols: int, op: str = "plus") -> torch.Tensor:
+    """1^T·A over a compact column domain: the column keys are the bins.
+
+    Entries whose column falls outside ``[0, num_cols)`` are dropped;
+    empty columns report 0, as in :func:`reduce_rows`.
+    """
+    ok = csr.entry_mask() & (csr.col_keys >= 0) & (csr.col_keys < num_cols)
+    seg = torch.where(ok, csr.col_keys.to(torch.int32), num_cols)
+    vals = torch.where(ok, csr.vals, 0)
+    if op == "plus":
+        return segment_sum(vals, seg, num_cols + 1)[:num_cols]
+    if op == "max":
+        return torch.clamp(_segment_extreme(
+            vals, seg, num_cols + 1, "amax", _min_ident(vals.dtype))[:num_cols],
+            min=0)
+    raise ValueError(f"unknown monoid {op!r}")
+
+
 def degrees(csr: CsrMatrix) -> torch.Tensor:
     """|A|_0·1 — stored entries per row, a pointer difference."""
     return (csr.indptr[1:] - csr.indptr[:-1]).to(torch.int32)
@@ -358,6 +377,49 @@ def vxm(x: torch.Tensor, csr: CsrMatrix, num_cols: int, *, add: str = "plus",
     prod = _products(csr.vals, x[safe].to(torch.float32), mul)
     seg = torch.where(ok, csr.col_keys.to(torch.int32), -1)
     return _semiring_reduce(prod, seg, num_cols, add, backend, mask)
+
+
+def transpose(
+    csr: CsrMatrix,
+    *,
+    nnz_capacity: Optional[int] = None,
+    row_capacity: Optional[int] = None,
+) -> Tuple[CsrMatrix, torch.Tensor]:
+    """A^T of a CSR with a one-column row key: ONE :func:`from_coo` sort of
+    the entries by (column, row).  Entries are distinct, so at the default
+    capacities nothing drops; ``dropped`` counts what a smaller capacity
+    cuts.  Returns ``(csr_t, dropped)``."""
+    if len(csr.row_keys) != 1:
+        raise ValueError(
+            f"transpose needs a 1-column row key, got {len(csr.row_keys)}")
+    return from_coo(
+        [csr.col_keys], csr.entry_row_key(0), csr.vals,
+        valid_mask=csr.entry_mask(), op="plus",
+        nnz_capacity=csr.nnz_capacity if nnz_capacity is None else nnz_capacity,
+        row_capacity=row_capacity,
+    )
+
+
+def symmetrize(
+    csr: CsrMatrix,
+    csr_t: Optional[CsrMatrix] = None,
+    *,
+    op: str = "plus",
+    nnz_capacity: Optional[int] = None,
+    row_capacity: Optional[int] = None,
+) -> Tuple[CsrMatrix, torch.Tensor]:
+    """A ⊕ A^T through :func:`ewise_union`: two sorts, or one when the
+    caller holds the transpose (the challenge's dst-keyed CSR).  Coincident
+    (u, v)/(v, u) entries combine under ``op``; ``nnz_capacity`` defaults
+    to the sum of both operands' (a fully asymmetric matrix fits) and
+    ``row_capacity`` to ``nnz_capacity``.  Returns ``(csr_sym, dropped)``."""
+    if csr_t is None:
+        csr_t, _ = transpose(csr)
+    if nnz_capacity is None:
+        nnz_capacity = csr.nnz_capacity + csr_t.nnz_capacity
+    return ewise_union(
+        csr, csr_t, op=op, nnz_capacity=nnz_capacity,
+        row_capacity=nnz_capacity if row_capacity is None else row_capacity)
 
 
 def gather_rows(csr: CsrMatrix, x: torch.Tensor, *, fill=0.0) -> torch.Tensor:

@@ -1,16 +1,22 @@
-"""Multi-temporal windowed queries — the port of the CSR path of
-``repro/core/temporal.py``.
+"""Multi-temporal windowed queries — the port of ``repro/core/temporal.py``.
 
 Window w's links are the plan's links restricted to the rows that fall in
 w, so every per-window statistic derives from the two already-sorted plans
-with zero additional sorts: masking the sorted stream to window w and
-segment-reducing gives A_w's entry values on the shared CSR skeleton.  The
-reference walks the windows with ``lax.scan``; the port walks them with a
-Python loop that reuses O(capacity) buffers per window, so peak memory is
-O(nnz), independent of ``n_windows``.
+with zero additional sorts.  Two such formulations, bit-identical:
 
-The dense-grid path (``method="grid"``) and the pre-plan naive path are not
-ported yet (ROADMAP.md queue 1 item 3).
+  * **CSR path (default)** — masking the sorted stream to window w and
+    segment-reducing gives A_w's entry values on the shared CSR skeleton.
+    The reference walks the windows with ``lax.scan``; the port walks them
+    with a Python loop that reuses O(capacity) buffers per window, so peak
+    memory is O(nnz), independent of ``n_windows``.
+  * **dense-grid path** (``method="grid"``, the pre-CSR A/B baseline) —
+    four ``(n_windows + 1, capacity + 1)`` int32 grids a plan side, each
+    built by one accumulating ``index_put_``; one pass, O(n_windows x
+    capacity) peak memory.
+
+Both equal the pre-plan :func:`windowed_queries_naive` (its (win, ...)-
+leading group-bys take six sorts: the three-key one sorts in two passes).
+Every sum is an integer sum, exact in any order.
 """
 from __future__ import annotations
 
@@ -19,11 +25,16 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..kernels.ops import segmented_reduce
-from .ops import segment_sum
+from .ops import _segment_extreme, groupby_aggregate, segment_sum
 from .plan import SortedEdges, sorted_edges
 from .table import Table
 
-__all__ = ["window_ids", "windowed_queries", "windowed_suite_from_plans"]
+__all__ = [
+    "window_ids",
+    "windowed_queries",
+    "windowed_queries_naive",
+    "windowed_suite_from_plans",
+]
 
 
 def window_ids(ts: torch.Tensor, window_len: int, t0=None) -> torch.Tensor:
@@ -95,6 +106,49 @@ def _side_stats_csr(
     return dict(zip(names, cols))
 
 
+def _side_stats_grid(plan: SortedEdges, win: torch.Tensor,
+                     n_windows: int) -> Dict[str, torch.Tensor]:
+    """Per-window stats of one plan side via dense scatter grids: the
+    (window, link) and (window, key0-group) row counts and packet sums,
+    each one accumulating ``index_put_`` over the flattened index
+    ``s_win * (capacity + 1) + segment``, then the per-window fan-out of
+    the links present in each window.  ``win`` is the per-original-row
+    window id; the plan's ``row`` payload routes it to sorted rows."""
+    cap = plan.capacity
+    device = plan.key0.device
+    valid = plan.valid_rows()
+    s_win = torch.where(
+        valid, torch.clamp(win[plan.row.long()], 0, n_windows - 1), n_windows
+    ).to(torch.int64)
+    ones = valid.to(torch.int32)
+    w_live = torch.where(valid, plan.w, 0)
+
+    def grid(seg, vals):
+        flat = torch.zeros((n_windows + 1) * (cap + 1), dtype=torch.int32,
+                           device=device)
+        flat.index_put_((s_win * (cap + 1) + seg.to(torch.int64),), vals,
+                        accumulate=True)
+        return flat.view(n_windows + 1, cap + 1)[:n_windows, :cap]
+
+    link_rows = grid(plan.seg, ones)
+    link_pk = grid(plan.seg, w_live)
+    k0_rows = grid(plan.k0_seg, ones)
+    k0_pk = grid(plan.k0_seg, w_live)
+    present = link_rows > 0
+    # distinct key1 per (window, key0): the links present in w, bucketed by
+    # the link -> key0-group map
+    fan = torch.zeros(n_windows, cap + 1, dtype=torch.int32, device=device)
+    fan.index_add_(1, plan.link_to_k0()[:cap], present.to(torch.int32))
+    return {
+        "unique_links": present.sum(dim=1, dtype=torch.int32),
+        "max_link_packets": link_pk.amax(dim=1),
+        "n_unique": (k0_rows > 0).sum(dim=1, dtype=torch.int32),
+        "max_packets": k0_pk.amax(dim=1),
+        "max_fanout": fan[:, :cap].amax(dim=1),
+        "valid_packets": segment_sum(w_live, s_win, n_windows + 1)[:n_windows],
+    }
+
+
 def windowed_suite_from_plans(
     plan_src: SortedEdges,
     plan_dst: SortedEdges,
@@ -104,15 +158,24 @@ def windowed_suite_from_plans(
     fused: bool = False,
     backend: str = "auto",
 ) -> Dict[str, torch.Tensor]:
-    """All scalar challenge statistics per window, off the shared plan pair
-    (``method="csr"``; ``fused=True`` routes the per-window reductions
-    through the histogram kernel's gate epilogue)."""
-    if method != "csr":
-        raise NotImplementedError(
-            f"windowed method {method!r} is not ported yet "
-            "(ROADMAP.md queue 1 item 3); use method='csr'")
-    s = _side_stats_csr(plan_src, win, n_windows, fused, backend)
-    d = _side_stats_csr(plan_dst, win, n_windows, fused, backend)
+    """All scalar challenge statistics per window, off the shared plan pair.
+
+    ``method="csr"`` (default) walks per-window CSR segments, O(nnz) peak
+    memory; ``method="grid"`` is the dense-scatter A/B baseline, O(n_windows
+    x capacity) peak memory, bit-identical results.  ``fused=True`` (CSR
+    only) routes the per-window reductions through the histogram kernel's
+    gate epilogue.
+    """
+    if method not in ("csr", "grid"):
+        raise ValueError(f"unknown windowed method {method!r}")
+    if fused and method != "csr":
+        raise ValueError("fused windowed suite requires method='csr'")
+    if method == "csr":
+        s = _side_stats_csr(plan_src, win, n_windows, fused, backend)
+        d = _side_stats_csr(plan_dst, win, n_windows, fused, backend)
+    else:
+        s = _side_stats_grid(plan_src, win, n_windows)
+        d = _side_stats_grid(plan_dst, win, n_windows)
     return {
         "valid_packets": s["valid_packets"],
         "unique_links": s["unique_links"],
@@ -143,6 +206,7 @@ def windowed_queries(
     static (extra windows are empty), ``t0`` the window origin (min ts by
     default; pass ``t0=0`` when ``ts_col`` already holds window ids),
     ``plans`` a pre-built plan pair so the suite costs zero extra sorts,
+    ``method`` ``"csr"`` or ``"grid"`` (:func:`windowed_suite_from_plans`),
     ``fused`` the kernel gate epilogue, ``backend`` the kernel dispatch
     (``"auto"``/``"torch"``/``"cuda"``).
 
@@ -162,3 +226,65 @@ def windowed_queries(
         plans[0], plans[1], win, n_windows, method=method, fused=fused,
         backend=backend,
     )
+
+
+# ---------------------------------------------------------------------------
+# pre-plan path: one (win, ...)-leading group-by sort per statistic family
+# (the A/B baseline; results bit-identical to the plan path)
+# ---------------------------------------------------------------------------
+
+def _per_window_max(values: torch.Tensor, win_of_group: torch.Tensor,
+                    mask: torch.Tensor, n_windows: int) -> torch.Tensor:
+    """Max of a per-group statistic within each window; windows with no
+    contributing group report 0 (the statistics are non-negative)."""
+    seg = torch.where(mask, win_of_group, n_windows)
+    vals = torch.where(mask, values, 0)
+    return torch.clamp(_segment_extreme(
+        vals, seg, n_windows + 1, "amax", torch.iinfo(vals.dtype).min
+    )[:n_windows], min=0)
+
+
+def windowed_queries_naive(
+    t: Table,
+    window_len: int,
+    n_windows: int,
+    ts_col: str = "ts",
+    t0=None,
+) -> Dict[str, torch.Tensor]:
+    """Pre-plan windowed suite: five (win, ...)-leading group-bys, six sorts
+    (the (win, src, dst) one takes two passes)."""
+    w = (t["n_packets"] if "n_packets" in t
+         else torch.ones(t.capacity, dtype=torch.int32, device=t.device))
+    win = torch.clamp(window_ids(t[ts_col], window_len, t0=t0), 0, n_windows - 1)
+    valid = t.valid_mask()
+    win_seg = torch.where(valid, win, n_windows)
+
+    def per_window_count(mask, keys):
+        return segment_sum(mask.to(torch.int32), torch.where(mask, keys, n_windows),
+                           n_windows + 1)[:n_windows]
+
+    out: Dict[str, torch.Tensor] = {"valid_packets": segment_sum(
+        torch.where(valid, w, 0), win_seg, n_windows + 1)[:n_windows]}
+
+    # links: group by (window, src, dst) once; everything link-ish follows
+    links = groupby_aggregate([win, t["src"], t["dst"]], {"packets": (w, "sum")},
+                              n_valid=t.n_valid)
+    lmask, lwin = links.mask(), links.keys[0]
+    out["unique_links"] = per_window_count(lmask, lwin)
+    out["max_link_packets"] = _per_window_max(links.aggs["packets"], lwin, lmask,
+                                              n_windows)
+    for side, col, col_idx in (("source", "src", 1), ("destination", "dst", 2)):
+        # per-(window, endpoint) packet sums and distinct counts
+        ep = groupby_aggregate([win, t[col]], {"packets": (w, "sum")},
+                               n_valid=t.n_valid)
+        m = ep.mask()
+        out[f"n_unique_{side}s"] = per_window_count(m, ep.keys[0])
+        out[f"max_{side}_packets"] = _per_window_max(ep.aggs["packets"],
+                                                     ep.keys[0], m, n_windows)
+        # fan-out / fan-in: distinct peers per (window, endpoint) over links
+        fan = groupby_aggregate([lwin, links.keys[col_idx]], None,
+                                n_valid=links.n_groups)
+        fname = "max_source_fanout" if side == "source" else "max_destination_fanin"
+        out[fname] = _per_window_max(fan.aggs["count"], fan.keys[0], fan.mask(),
+                                     n_windows)
+    return out

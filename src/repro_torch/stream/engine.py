@@ -55,7 +55,8 @@ import torch
 
 from ..challenge.pipeline import ChallengeResults
 from ..challenge.pipeline import analyze as challenge_analyze
-from ..core.ops import _iota, factorize, groupby_aggregate, isin, mix32, multi_key_sort
+from ..core.ops import (_count, _iota, factorize, groupby_aggregate, isin, mix32,
+                        multi_key_sort)
 from ..core.plan import unique_concat
 from ..core.sketch import (
     SketchConfig,
@@ -159,14 +160,6 @@ class StreamConfig:
 # the state transition (pure; no host sync)
 # ---------------------------------------------------------------------------
 
-def _live_count(n_valid, device: torch.device) -> torch.Tensor:
-    """A live-row count as a 0-d int32 tensor on ``device``; a Python int
-    becomes one by a fill on the device, with no host-to-device copy."""
-    if isinstance(n_valid, torch.Tensor):
-        return n_valid.to(device=device, dtype=torch.int32)
-    return torch.full((), int(n_valid), dtype=torch.int32, device=device)
-
-
 def _rank_among(order: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """rank[i] = position of ``order[i]`` among the masked entries sorted
     ascending (garbage where ``~mask``).  Orders must be distinct."""
@@ -266,7 +259,7 @@ def _fold_dictionary_and_activity(state: StreamState, src, dst, win, valid,
 def _batch_columns(state: StreamState, src, dst, win, n_valid):
     """The batch as the transition reads it: int32 columns, windows clipped
     into range, the live count on the device and the live-row mask."""
-    n_valid = _live_count(n_valid, state.device)
+    n_valid = _count(n_valid, 0, state.device)
     src = src.to(torch.int32)
     dst = dst.to(torch.int32)
     win = torch.clamp(win.to(torch.int32), 0, state.n_windows - 1)
@@ -616,7 +609,7 @@ class StreamEngine:
         if self.cfg.sketch_enabled:
             self._sketch_state = update_sketch(
                 self._sketch_state, src, dst,
-                _live_count(n_valid, self.device), backend=self.cfg.backend)
+                _count(n_valid, 0, self.device), backend=self.cfg.backend)
         self.n_ingested += 1
         reg = get_registry()
         reg.counter("stream_batches_ingested_total",

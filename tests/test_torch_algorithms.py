@@ -3,7 +3,8 @@
 captures at scales 8 and 10: BFS levels, component labels and triangle
 counts bit for bit; PageRank within 1e-6 L1 of both, its iteration count
 within one of JAX's (float sums run in another order).  Then the
-reference's edge cases, the fixed-point cap-out, the three-sort budget of
+reference's edge cases, the fixed-point cap-out, components with the
+transpose built from the CSR (``csr_t=None``), the three-sort budget of
 ``analyze(algorithms=True)`` and the whole ``analyze`` against JAX's."""
 import numpy as np
 import pytest
@@ -226,10 +227,20 @@ def test_fixed_point_harness():
         alg.fixed_point(lambda s: s, x, -1, lambda old, new: True)
 
 
-def test_components_without_transpose_is_not_ported_yet():
-    _, _, cs, _, nv = _graph([0, 1], [1, 2])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        alg.connected_components(cs, nv)
+def test_components_without_transpose_builds_it(graphs):
+    """``csr_t=None`` sorts the transpose itself (``sparse.transpose``): the
+    labels equal the ones off the dst-keyed CSR and JAX's ``csr_t=None``."""
+    g = graphs
+    with SortCounter() as counter:
+        got = alg.connected_components(g["csrs"][0], g["nv"], n_live=g["n_live"])
+    assert counter.n == 1
+    given = alg.connected_components(g["csrs"][0], g["nv"], csr_t=g["csrs"][1],
+                                     n_live=g["n_live"])
+    want = jalg.connected_components(g["jcsrs"][0], g["nv"], n_live=g["n_live"],
+                                     backend="xla")
+    for f in ("labels", "n_components", "iterations", "converged"):
+        _same(getattr(got, f), getattr(given, f))
+        _same(getattr(got, f), getattr(want, f))
 
 
 # --- analyze(algorithms=True) -------------------------------------------------

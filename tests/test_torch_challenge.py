@@ -2,7 +2,10 @@
 against the JAX ``analyze`` through ``repro_torch.convert`` (bit for bit, on
 every output), the three-sort budget, the CSR windowed suite and the
 cross-window overlap against the NumPy oracle, anonymization, the timed
-run and the CLI."""
+run and the CLI; then the A/B baselines (``analyze(use_plan=False)``,
+``windowed_method="grid"``, both overlap methods and the naive one) at
+scales 10 and 12 against the plan path and against JAX's, their sort
+counts, and the one-program path (``fused=True``, ``--fused``)."""
 import json
 import os
 import subprocess
@@ -169,7 +172,7 @@ def test_cli_algorithms_and_sketch_tier_on_cpu(tmp_path, capsys):
         assert line in out
 
 
-@pytest.mark.parametrize("flag", [["--fused"], ["--distributed"], ["--autotune"]])
+@pytest.mark.parametrize("flag", [["--distributed"], ["--autotune"]])
 def test_cli_refuses_unported_flags(flag, capsys):
     with pytest.raises(SystemExit) as e:
         main(["--scale", "9", "--device", "cpu", *flag])
@@ -197,3 +200,108 @@ def test_span_records_are_json(tmp_path):
     rec = get_tracer().records()[-1]
     assert rec["attrs"] == {"n": 3, "v": [0, 1]}
     assert json.loads(json.dumps(rec)) == rec
+
+
+# --- the A/B baselines and the one-program path ------------------------------
+
+@pytest.fixture(scope="module", params=[10, 12])
+def both_tables(request, tmp_path_factory):
+    """The port's and JAX's hash-anonymized tables of one capture."""
+    from _torch_parity import x64_shim_applied
+
+    with x64_shim_applied():
+        cols, table_cols, n = _columns(request.param,
+                                       tmp_path_factory.mktemp("ab"))
+        t = anonymize(table_from_numpy(table_cols, n, device="cpu"),
+                      method="hash").table
+        jt = jax_anonymize(jax_pipeline.build_table(
+            table_cols["src"], table_cols["dst"], table_cols["win"], n),
+            method="hash").table
+    return t, jt, table_cols, n
+
+
+def _same_results(got, want):
+    assert got.keys() == want.keys() and len(got) == 50
+    for key in want:
+        assert got[key].dtype == want[key].dtype, key
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+
+AB = {"naive": dict(use_plan=False), "grid": dict(windowed_method="grid")}
+
+
+@pytest.mark.parametrize("mode", sorted(AB))
+def test_ab_baselines_match_the_plan_path_and_jax(x64_shim, both_tables, mode):
+    t, jt, _, _ = both_tables
+    kw = dict(n_windows=N_WINDOWS, ip_bins=IP_BINS, k=K)
+    got = results_to_numpy(pipeline.analyze(t, device="cpu", **AB[mode], **kw))
+    _same_results(got, results_to_numpy(pipeline.analyze(t, device="cpu", **kw)))
+    _same_results(got, results_to_numpy(jax_pipeline.analyze(jt, **AB[mode], **kw)))
+
+
+@pytest.mark.parametrize("method", ["scan", "grid", "naive"])
+def test_overlap_methods_match_jax_and_oracle(x64_shim, both_tables, method):
+    t, jt, table_cols, n = both_tables
+    if method == "naive":
+        got = pipeline.cross_window_ip_overlap_naive(t, N_WINDOWS)
+        want = jax_pipeline.cross_window_ip_overlap_naive(jt, N_WINDOWS,
+                                                          backend="xla")
+    else:
+        got = pipeline.cross_window_ip_overlap(t, N_WINDOWS, method=method)
+        want = jax_pipeline.cross_window_ip_overlap(jt, N_WINDOWS, method=method)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got.numpy(), ref_window_ip_overlap(
+        t["src"][:n].numpy(), t["dst"][:n].numpy(), table_cols["win"][:n],
+        N_WINDOWS))
+
+
+@pytest.mark.parametrize("mode,sorts", [("plan", 3), ("grid", 3), ("naive", 18)])
+def test_analyze_sort_counts(scale10, mode, sorts):
+    """The plan path sorts three times, on either windowed method; the
+    pre-plan path 18 times (``pipeline._analyze_naive``), at least the 8
+    that the reference's test asks of its naive path."""
+    with SortCounter() as counter:
+        pipeline.analyze(scale10[3], n_windows=N_WINDOWS, ip_bins=IP_BINS, k=K,
+                         device="cpu", **AB.get(mode, {}))
+    assert counter.n == sorts
+    assert mode != "naive" or counter.n >= 8
+
+
+def test_naive_analyze_refuses_plan_only_options(scale10):
+    kw = dict(n_windows=N_WINDOWS, ip_bins=IP_BINS, k=K, device="cpu",
+              use_plan=False)
+    for opt in ("algorithms", "fused_epilogue"):
+        with pytest.raises(ValueError, match="requires the plan path"):
+            pipeline.analyze(scale10[3], **kw, **{opt: True})
+
+
+@pytest.mark.parametrize("method", ["hash", "shuffle"])
+@pytest.mark.parametrize("algorithms", [False, True])
+def test_run_challenge_fused_on_cpu(tmp_path, method, algorithms):
+    """``fused=True``: ``fused_s`` timed and in the table, its results equal
+    to the phases', and the span read back by ``timings_from_spans``."""
+    get_tracer().clear()
+    cfg = pipeline.ChallengeConfig(scale=9, n_windows=2, device="cpu",
+                                   workdir=str(tmp_path), method=method,
+                                   fused=True, algorithms=algorithms)
+    run = pipeline.run_challenge(cfg)
+    assert run.timings.fused_s > 0
+    assert "fused(b+a+a)" in run.timings.format_table()
+    assert run.timings.as_dict()["fused_s"] == run.timings.fused_s
+    assert run.timings.packets_per_s("fused") == 512 / run.timings.fused_s
+    got, want = (results_to_numpy(run.fused_results),
+                 results_to_numpy(run.results))
+    assert got.keys() == want.keys()
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    assert pipeline.timings_from_spans(get_tracer().records()) == run.timings
+
+
+def test_cli_fused_on_cpu(tmp_path, capsys):
+    rc = main(["--scale", "9", "--windows", "2", "--device", "cpu", "--fused",
+               "--workdir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert rc == 0
+    assert "fused(b+a+a)" in out
+    assert "all scalar queries match the NumPy oracle" in out

@@ -671,3 +671,82 @@ def test_stream_update_queues_without_a_host_sync(dev):
         update_sketch(eng.sketch_state, batch[0], batch[1], n_valid)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+# --- the challenge's one-program path and its A/B baselines -------------------
+
+@pytest.mark.parametrize("method,fused_epilogue",
+                         [("hash", False), ("shuffle", False), ("hash", True)])
+def test_fused_graph_replay_equals_the_phases(dev, tmp_path, method, fused_epilogue):
+    """``run_challenge(fused=True)`` at scale 12: the CUDA graph's replay
+    (build's device part, anonymize, analyze; the shuffle's generator
+    registered and reseeded) equals the timed phases' results bit for bit,
+    and its capture launched the histogram kernel (1 launch a program, 66
+    with the fused epilogue's gated sums)."""
+    from repro_torch.challenge.pipeline import ChallengeConfig, run_challenge
+    from repro_torch.convert import results_to_numpy
+
+    cfg = ChallengeConfig(scale=12, method=method, fused=True,
+                          fused_epilogue=fused_epilogue, workdir=str(tmp_path),
+                          device=str(dev))
+    before = hist_kernel.LAUNCHES
+    run = run_challenge(cfg)
+    # warm pass, timed analyze, the eager program, the capture
+    per_program = 1 + (2 * cfg.n_windows * 4 + 1 if fused_epilogue else 0)
+    assert hist_kernel.LAUNCHES - before == 4 * per_program
+    assert run.timings.fused_s > 0
+    got, want = results_to_numpy(run.fused_results), results_to_numpy(run.results)
+    assert got.keys() == want.keys() and len(got) == 50
+    for key in want:
+        assert (got[key] == want[key]).all(), key
+
+
+def test_challenge_chain_runs_without_a_host_sync(dev):
+    """Build's device part, anonymize (hash and shuffle) and analyze queue
+    on the card with every synchronizing call an error, after a warm run
+    (the kernels' setup runs once, outside)."""
+    from repro_torch.challenge.pipeline import analyze
+    from repro_torch.core.anonymize import anonymize
+    from repro_torch.core.queries import traffic_matrix
+    from repro_torch.core.table import Table
+
+    n = 1 << 12
+    cols = [torch.randint(0, n, (n,), dtype=torch.int32).pin_memory()
+            for _ in range(2)] + [torch.randint(0, 8, (n,), dtype=torch.int32)
+                                  .pin_memory()]
+    static = [c.to(dev, non_blocking=True) for c in cols]
+
+    def chain(method):
+        table = Table(columns=dict(zip(("src", "dst", "win"), static)),
+                      n_valid=torch.full((), n - 5, dtype=torch.int32, device=dev))
+        traffic_matrix(table)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        t = anonymize(table, gen if method == "shuffle" else None,
+                      method=method).table
+        return analyze(t, n_windows=8, ip_bins=1024, k=10, device=dev)
+
+    for method in ("hash", "shuffle"):
+        chain(method)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            chain(method)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+
+
+def test_histogram_at_the_naive_overlap_shape(dev):
+    """Shape (v): 2 x 2^24 int32 window ids, non-members -1, into 8 bins with
+    no weights (``cross_window_ip_overlap_naive``): bit-equal to plain, one
+    launch (counts of 1.0 are exact in float32 below 2^24)."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    n = 2 << 24
+    ids = torch.randint(0, 8, (n,), generator=g, device=dev, dtype=torch.int32)
+    ids = torch.where(torch.rand(n, generator=g, device=dev) < 0.6, ids, -1)
+    before = hist_kernel.LAUNCHES
+    got = ops.histogram(ids, 8, backend="cuda")
+    assert hist_kernel.LAUNCHES == before + 1
+    want = ops.histogram(ids, 8, backend="torch")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and int(got.double().sum()) == int((ids >= 0).sum())

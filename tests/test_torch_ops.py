@@ -169,3 +169,77 @@ def test_random_permutation_is_a_permutation():
     again = ops.random_permutation(torch.Generator().manual_seed(5), 50,
                                    torch.tensor(30, dtype=torch.int32)).numpy()
     np.testing.assert_array_equal(out, again)
+
+
+def _same_unique(got, want):
+    for f in ("values", "counts", "n_unique"):
+        _same(getattr(got, f), getattr(want, f))
+    assert (got.weight_sums is None) == (want.weight_sums is None)
+    if got.weight_sums is not None:
+        _same(got.weight_sums, want.weight_sums)
+    _same(got.mask(), want.mask())
+
+
+@pytest.mark.parametrize("n_valid", [0, 1, 70, 97])  # 0: all padding
+@pytest.mark.parametrize("weighted", [False, True])
+def test_unique_and_value_counts_match_reference(n_valid, weighted):
+    """``unique`` (values, counts, weight sums, mask) and ``value_counts``,
+    padding that collides with live values included."""
+    cap = 97
+    rng = np.random.default_rng(n_valid + 100 * weighted)
+    x = rng.integers(-20, 20, cap).astype(np.int32)
+    x[n_valid:] = 7
+    w = rng.integers(0, 9, cap).astype(np.int32) if weighted else None
+    got = ops.unique(_t(x), n_valid=n_valid,
+                     weights=None if w is None else _t(w))
+    want = jops.unique(jnp.asarray(x), n_valid=n_valid,
+                       weights=None if w is None else jnp.asarray(w))
+    _same_unique(got, want)
+    vals, counts = np.unique(x[:n_valid], return_counts=True)
+    _same(got.values[:len(vals)], vals)
+    _same(got.counts[:len(vals)], counts.astype(np.int32))
+    _same_unique(ops.value_counts(_t(x), n_valid),
+                 jops.value_counts(jnp.asarray(x), n_valid))
+
+
+def test_unique_with_valid_mask_matches_reference():
+    cap = 64
+    rng = np.random.default_rng(5)
+    x = rng.integers(0, 10, cap).astype(np.int32)
+    mask = rng.random(cap) < 0.5
+    _same_unique(ops.unique(_t(x), valid_mask=_t(mask)),
+                 jops.unique(jnp.asarray(x), valid_mask=jnp.asarray(mask)))
+
+
+@pytest.mark.parametrize("n_valid", [0, 50, 120])
+def test_drop_duplicates_matches_reference(n_valid):
+    k0, k1 = _keys(n_valid + 3, 120, hi=4)
+    got = ops.drop_duplicates([_t(k0), _t(k1)], n_valid)
+    want = jops.drop_duplicates([jnp.asarray(k0), jnp.asarray(k1)], n_valid)
+    for g, w in zip(got.keys, want.keys):
+        _same(g, w)
+    _same(got.aggs["count"], want.aggs["count"])
+    _same(got.n_groups, want.n_groups)
+    rows = {(a, b) for a, b in zip(k0[:n_valid], k1[:n_valid])}
+    assert int(got.n_groups) == len(rows)
+
+
+@pytest.mark.parametrize("n_keys", [1, 2])
+@pytest.mark.parametrize("ln,rn", [(0, 0), (1, 0), (0, 1), (120, 60), (64, 64)])
+def test_semi_join_matches_reference_and_numpy(n_keys, ln, rn):
+    """Left rows whose key tuple appears among the right's live rows:
+    against ``np.isin`` on the tuples (packed into one int64) and the
+    reference's mask, padding rows False."""
+    rng = np.random.default_rng(ln * 100 + rn + n_keys)
+    lcap, rcap = ln + 9, rn + 5
+    left = [rng.integers(0, 9, lcap).astype(np.int32) for _ in range(n_keys)]
+    right = [rng.integers(0, 9, rcap).astype(np.int32) for _ in range(n_keys)]
+    got = ops.semi_join([_t(k) for k in left], [_t(k) for k in right], ln, rn)
+    want = jops.semi_join([jnp.asarray(k) for k in left],
+                          [jnp.asarray(k) for k in right],
+                          left_n_valid=ln, right_n_valid=rn)
+    _same(got, want)
+    pack = lambda cols, n: sum(c[:n].astype(np.int64) * 16 ** i
+                               for i, c in enumerate(cols))
+    _same(got[:ln], np.isin(pack(left, ln), pack(right, rn)))
+    assert not got[ln:].any()

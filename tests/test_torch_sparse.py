@@ -119,3 +119,58 @@ def test_unknown_semiring_raises():
     got, _ = _pair(7)
     with pytest.raises(ValueError, match="semiring"):
         sparse.vxm(torch.zeros(CAP), got, NUM_COLS, add="min", mul="plus")
+
+
+def _same_csr(got, want):
+    for f in ("indptr", "col_keys", "vals", "n_rows", "nnz"):
+        _same(getattr(got, f), getattr(want, f))
+    assert len(got.row_keys) == len(want.row_keys)
+    for g, w in zip(got.row_keys, want.row_keys):
+        _same(g, w)
+
+
+@pytest.mark.parametrize("op", ["plus", "max"])
+def test_reduce_cols_matches_reference(op):
+    """Columns 32..39 fall outside ``num_cols`` and drop out."""
+    got, want = _pair(8)
+    _same(sparse.reduce_cols(got, NUM_COLS, op),
+          jsparse.reduce_cols(want, NUM_COLS, op))
+    with pytest.raises(ValueError, match="monoid"):
+        sparse.reduce_cols(got, NUM_COLS, "min")
+
+
+@pytest.mark.parametrize("nnz_capacity,row_capacity", [(None, None), (60, 20)])
+def test_transpose_matches_reference(nnz_capacity, row_capacity):
+    """A^T's buffers and its drop count, at the default capacities and at
+    capacities that cut it."""
+    got, want = _pair(9)
+    kw = dict(nnz_capacity=nnz_capacity, row_capacity=row_capacity)
+    (gt, gd), (wt, wd) = sparse.transpose(got, **kw), jsparse.transpose(want, **kw)
+    _same_csr(gt, wt)
+    _same(gd, wd)
+    if nnz_capacity is None:
+        assert int(gd) == 0 and int(gt.nnz) == int(got.nnz)
+    else:
+        assert int(gd) > 0
+
+
+@pytest.mark.parametrize("given_transpose", [False, True])
+@pytest.mark.parametrize("op", ["plus", "max"])
+def test_symmetrize_matches_reference(given_transpose, op):
+    got, want = _pair(10)
+    gt = sparse.transpose(got)[0] if given_transpose else None
+    wt = jsparse.transpose(want)[0] if given_transpose else None
+    (gs, gd), (ws, wd) = (sparse.symmetrize(got, gt, op=op),
+                          jsparse.symmetrize(want, wt, op=op))
+    _same_csr(gs, ws)
+    _same(gd, wd)
+    assert int(gd) == 0
+
+
+def test_transpose_needs_one_row_key():
+    got, _ = _pair(11)
+    two = sparse.CsrMatrix(row_keys=(got.row_keys[0], got.row_keys[0]),
+                           indptr=got.indptr, col_keys=got.col_keys,
+                           vals=got.vals, n_rows=got.n_rows, nnz=got.nnz)
+    with pytest.raises(ValueError, match="1-column row key"):
+        sparse.transpose(two)

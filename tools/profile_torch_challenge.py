@@ -9,7 +9,11 @@ copy intervals), its idle share of the traced wall, and the kernels that
 take the most device time.  One JSON line per phase; needs a card.
 
 Phases: ``build_device``, ``anonymize``, ``analyze`` and ``analyze_fused``
-(the default set); ``bfs`` (from the heaviest link's source),
+(the default set); ``analyze_naive`` and ``analyze_grid``, the A/B
+baselines (``use_plan=False``, ``windowed_method="grid"``);
+``fused_replay``, one run of the ``--fused`` path's CUDA graph (the pinned
+copies of the columns and a replay of build's device part, anonymize and
+analyze); ``bfs`` (from the heaviest link's source),
 ``components``, ``pagerank`` and ``triangles`` over the anonymized
 table's CSR pair, as ``analyze(algorithms=True)`` runs them;
 ``sketch_batch``, one ``update_sketch`` of the capture's first 2^15 rows;
@@ -43,6 +47,7 @@ attention kernel (its prefill path in ``lm_prefill``, its split-kv decode
 path and combine in ``lm_decode``), of the matrix products and of the rest.
 
     python3 tools/profile_torch_challenge.py --scale 24
+    python3 tools/profile_torch_challenge.py --phases analyze analyze_naive analyze_grid fused_replay
     python3 tools/profile_torch_challenge.py --scale 20 --phases bfs components pagerank triangles
     python3 tools/profile_torch_challenge.py --phases stream_ingest
     python3 tools/profile_torch_challenge.py --phases hll_fold hll_fold_library
@@ -148,7 +153,8 @@ def _family(kernel_name: str) -> str:
     return "other"
 
 
-TABLE_PHASES = ("build_device", "anonymize", "analyze", "analyze_fused", "bfs",
+TABLE_PHASES = ("build_device", "anonymize", "analyze", "analyze_fused",
+                "analyze_naive", "analyze_grid", "fused_replay", "bfs",
                 "components", "pagerank", "triangles", "sketch_batch",
                 "stream_ingest")
 KERNEL_PHASES = tuple(f"{k}{s}" for k in ("segmax_vxm", "hll_fold", "cms_fold",
@@ -260,7 +266,8 @@ def table_phases(args, dev):
     """The phases over the challenge table at ``--scale``."""
     import torch
     from repro_torch.challenge.pipeline import (ChallengeConfig, analyze,
-                                                build_columns, read_phase)
+                                                build_columns, fused_program,
+                                                read_phase)
     from repro_torch.convert import table_from_numpy
     from repro_torch.core import algorithms as alg
     from repro_torch.core.anonymize import anonymize
@@ -283,7 +290,14 @@ def table_phases(args, dev):
         "anonymize": lambda: anonymize(table, method="hash"),
         "analyze": lambda: analyze(anon, **kw),
         "analyze_fused": lambda: analyze(anon, fused_epilogue=True, **kw),
+        "analyze_naive": lambda: analyze(anon, use_plan=False, **kw),
+        "analyze_grid": lambda: analyze(anon, windowed_method="grid", **kw),
     }
+    if "fused_replay" in args.phases:
+        run = fused_program(cfg, (src, dst, win), n, dev, n_windows=cfg.n_windows,
+                            ip_bins=cfg.ip_bins, k=cfg.top_k)
+        host = [torch.from_numpy(c.copy()).pin_memory() for c in (src, dst, win)]
+        phases["fused_replay"] = lambda: run(host)
     if {"bfs", "components", "pagerank", "triangles"} & set(args.phases):
         csr_src, csr_dst = table_csrs(anon)
         nv, n_live = 2 * anon.capacity, unique_ips(anon).n_unique
