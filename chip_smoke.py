@@ -32,12 +32,13 @@ Phases (any failure exits non-zero):
      weights (bit-equal, ``bincount`` and ``index_add_`` beside it);
    * segment max: the vxm's 2^20 values into 2^21 vertex slots with
      ``valid_mask``/``retire=-inf``, the HyperLogLog fold's 2^15 rows into
-     4,096 registers with ``init`` and the same at the stream's 2^18 rows
-     (h-s), and the gate, ``n == 0``, out-of-range ids, ±inf, -0.0 and
+     4,096 registers with ``init``, the same at the stream's 2^18 rows
+     (h-s) and at the degrade backfill's 2^23 (h-b), and the gate, ``n == 0``, out-of-range ids, ±inf, -0.0 and
      random floats: all bit-equal;
    * Count-Min: int32 (4, 4096) cells with 2^15 proposals and counts past
      2^24 (both kernel paths, cluster and cooperative, timed), 2^18
-     proposals (j-s, the stream's micro-batch), float32
+     proposals (j-s, the stream's micro-batch), 2^23 weighted proposals
+     (j-b, the degrade backfill's), float32
      cells (both paths), all proposals masked, ``n == 0``, rows of 100,000
      cells (the cooperative path): all bit-equal.
 3. The main path at scale 24: ``run_challenge`` with ``method="hash"``, with
@@ -138,11 +139,30 @@ Phases (any failure exits non-zero):
    with the dst-keyed CSR, its segment-max launches counted; and the CLI
    with ``--fused`` (shuffle) at scale 18: exit 0, the ``fused(b+a+a)`` row
    and the oracle line.
+10. The fault-tolerant service (``repro_torch.stream.recovery``) over phase
+   3's capture in phase 8's geometry, both tiers: ``run_service`` with a
+   commit every 16 batches and no faults (scalars against the oracle, every
+   sketch estimate within its bound, 1 histogram, 2 Count-Min and 3
+   segment-max launches a fold; fold p50/p99, each commit's wall beside one
+   save's device-to-host copies, packets/s, ``max_memory_allocated``, the
+   checkpoints' bytes and the free disk); the same under the serve CLI's
+   ``--chaos`` cocktail with a crash after batch 40 (every exact and sketch
+   leaf bit-equal to the fault-free run's, 9 batches replayed, no host sync
+   in a fold but those after a commit or the restore, counted with
+   ``set_sync_debug_mode("warn")``, and the restored life holding no more
+   memory between folds than the first: the restore and replay walls);
+   degradation at 2^23 links of capacity (exact -> both -> sketch before
+   any overflow, the sketch holding every packet and within its bounds, the
+   backfill's launches counted and its wall timed); a crash after the switch
+   at scale 20 (restored degraded, bit-equal to the uninterrupted degraded
+   run); and ``python -m repro_torch.launch.serve --chaos --crash-at-batch 4
+   --verify --metrics-out`` at scale 18 (exit 0, its lines and files) and
+   with ``--distributed`` (exit 2).
 
 Then it prints one JSON line of kernel records, whose launch counts are
 those of the main path's runs (phases 3, 4 and 5, without the algorithms
 timed on their own; the segment-sum entry point's run of phase 6; phase
-7's counted run; phase 8's and phase 9's runs, each under its own name),
+7's counted run; phase 8's, 9's and 10's runs, each under its own name),
 the card line
 again, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -173,6 +193,9 @@ SKETCH_BATCH = 1 << 15      # run_sketch_tier's micro-batch
 STREAM_BATCH = 1 << 18      # the streaming engine's micro-batch (phase 8)
 STREAM_PHASE_BATCHES = 8    # batches timed phase by phase (--time-phases)
 STREAM_AB_BATCHES = 16      # the A/B of the two link paths at ALGO_SCALE
+# the fault-tolerant service (phase 10): the degradation run's link_capacity,
+# which is also the row count of the degrade backfill's sketch fold (phase 2)
+SERVE_DEGRADE_LINKS = 1 << 23
 # what torch.cuda.set_sync_debug_mode("warn") says at a synchronizing call
 SYNC_WARNING = "called a synchronizing CUDA operation"
 SOURCES = ("histogram", "segreduce", "sketch", "flash_attention", "segment_matmul")
@@ -715,6 +738,24 @@ def check_segment_max(dev):
          plain())
     timed("h-s: rho int32 (2^18,), reg ids int32, 4,096 registers, init",
           kern, plain, library, STREAM_BATCH, m, 4 * m)
+    # (h-b) the degrade backfill's fold (phase 10): one weighted update_sketch
+    # over the whole link table, SERVE_DEGRADE_LINKS rows of which the live
+    # prefix (about half at the switch) carries register ids, the rest -1
+    k = SERVE_DEGRADE_LINKS
+    reg_ids_b = torch.where(torch.arange(k, device=dev) < k // 2,
+                            rand(0, m, k), -1)
+    rhos_b = rand(1, 22, k)
+    kern = lambda: hll_update(regs, reg_ids_b, rhos_b, backend="cuda")
+    plain = lambda: hll_update(regs, reg_ids_b, rhos_b, backend="torch")
+    same("(h-b) HLL fold: 2^23 rows -> 4,096 registers with init", kern(), plain())
+    library = lambda: torch.cat([regs, regs.new_full((1,), float("-inf"))]
+                                ).scatter_reduce_(
+        0, torch.where(reg_ids_b >= 0, reg_ids_b, m).long(), rhos_b.float(),
+        "amax")[:m]
+    same("(h-b) the library yardstick computes the same registers", library(),
+         plain())
+    timed("h-b: rho int32 (2^23,), reg ids int32, 4,096 registers, init",
+          kern, plain, library, k, m, 4 * m)
 
     # (i) the epilogues, no rows, out-of-range ids
     for nseg in (1000, 4096, 20000):
@@ -811,6 +852,32 @@ def check_cms(dev):
         "case": "j-s: cells int32 (4, 4096), col ids int32 (4, 2^18), "
                 "proposals int32 (2^18,)",
         **timings(kern_s, plain_s, library_s),
+        "bound_ms": (4 * depth * k + 4 * k + 8 * depth * width)
+        / HBM_BYTES_PER_S * 1e3,
+    })
+    # (j-b) the degrade backfill's fold (phase 10): SERVE_DEGRADE_LINKS
+    # weighted proposals (est + a link's packets), the live prefix about half
+    k = SERVE_DEGRADE_LINKS
+    cols_b = torch.where(torch.arange(k, device=dev)[None, :] < k // 2,
+                         rand(0, width, depth, k), -1)
+    props_b = rand(0, 1 << 27, k)
+    kern_b = lambda: cms_update(counts, cols_b, props_b, backend="cuda")
+    plain_b = lambda: cms_update(counts, cols_b, props_b, backend="torch")
+    same("(j-b) int32 (4, 4096) cells, 2^23 weighted proposals", kern_b(),
+         plain_b())
+
+    def library_b():
+        flat = torch.where(cols_b >= 0, rows + cols_b, depth * width).long().reshape(-1)
+        cells = torch.cat([counts.reshape(-1), counts.new_zeros(1)])
+        return cells.scatter_reduce_(0, flat, props_b.expand(depth, k).reshape(-1),
+                                     "amax")[:-1].view(depth, width)
+
+    same("(j-b) the library yardstick computes the same cells", library_b(),
+         plain_b())
+    shapes.append({
+        "case": "j-b: cells int32 (4, 4096), col ids int32 (4, 2^23), "
+                "proposals int32 (2^23,)",
+        **timings(kern_b, plain_b, library_b),
         "bound_ms": (4 * depth * k + 4 * k + 8 * depth * width)
         / HBM_BYTES_PER_S * 1e3,
     })
@@ -1338,6 +1405,347 @@ def stream_engine(dev, capture, ref):
                                  f"exited {rc}, not 1 on overflow")
         check_launches("stream_cli_overflow", histogram=8)
         log("[stream_cli] exit 0 with both oracle lines; exit 1 on overflow")
+    return launches, summary
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def fault_tolerant_service(dev, capture, ref, card: str):
+    """Phase 10: the fault-tolerant service (``repro_torch.stream.recovery``)
+    over phase 3's capture in phase 8's geometry: a fault-free reference run
+    with commits every 16 batches, the chaos cocktail with a crash after
+    batch 40 (bit-equal to the reference run, host syncs counted fold by
+    fold), degradation to the sketch tier at 2^23 links, a crash after the
+    switch at scale 20, and the serve CLI.  Returns the runs' launches and
+    a summary of the numbers."""
+    import dataclasses
+    import shutil
+    import warnings
+
+    import numpy as np
+    import torch
+    from repro_torch.challenge.pipeline import window_column
+    from repro_torch.challenge.run import verify_sketch
+    from repro_torch.core.sketch import SketchConfig, init_sketch, update_sketch
+    from repro_torch.data.faults import FaultConfig, RetryPolicy
+    from repro_torch.data.plq import write_plq
+    from repro_torch.data.rmat import synthetic_packets
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.obs import reset_registry
+    from repro_torch.stream import DegradePolicy, StreamConfig, run_service
+    from repro_torch.train.checkpoint import tree_flatten
+
+    n = len(capture["src"])
+    batches = n // STREAM_BATCH
+    win = window_column(capture["ts"], N_WINDOWS)
+    every, crash_at = 16, 40
+    cfg = StreamConfig(batch_capacity=STREAM_BATCH, link_capacity=n,
+                       n_windows=N_WINDOWS, ip_bins=IP_BINS, tier="both",
+                       sketch=SketchConfig(), device=str(dev))
+    off = {"histogram": 0, "segment_max": 0, "cms_update": 0, "hll_update": 0,
+           **NO_LM_OR_GNN}
+    launches, summary = {}, {"card": card, "batches": batches,
+                             "checkpoint_every": every}
+
+    def check_launches(name, folds, sketch_folds, backfills=0):
+        launches[name] = read_launches()
+        sk = sketch_folds + backfills
+        want = {**off, "histogram": folds, "cms_update": 2 * sk,
+                "segment_max": 3 * sk, "hll_update": 3 * sk}
+        if launches[name] != want:
+            raise AssertionError(f"{name}: kernel launches {launches[name]}, "
+                                 f"the code implies {want}")
+        log(f"[{name}] kernel launches {launches[name]}")
+
+    def check_answers(name, snap, exact=True):
+        if exact:
+            bad = {k: (int(getattr(snap.results.scalars, k)), v)
+                   for k, v in ref.items()
+                   if int(getattr(snap.results.scalars, k)) != v}
+            if bad or snap.overflow != 0:
+                raise AssertionError(f"{name}: overflow {snap.overflow}, scalars "
+                                     f"(service, oracle) disagree: {bad}")
+        if verify_sketch(snap.sketch, ref):
+            raise AssertionError(f"{name}: a sketch estimate is outside its bound")
+        log(f"[{name}] " + ("all scalars match the NumPy oracle, overflow 0; "
+                            if exact else "") + "every sketch estimate within its bound")
+
+    def host_leaves(engine):
+        tree = {"exact": engine.state, "sketch": engine.sketch_state}
+        return [x.cpu().numpy() for x in tree_flatten(tree)[0]]
+
+    def fold_stats(timings):
+        steady = np.array([t.total_s for t in timings if not t.compile])
+        return {"p50_s": float(np.percentile(steady, 50)),
+                "p99_s": float(np.percentile(steady, 99)),
+                "steady_packets_per_s": float(
+                    sum(t.n_packets for t in timings if not t.compile) / steady.sum())}
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as workdir:
+        path = os.path.join(workdir, "capture.plq")
+        write_plq(path, {k: capture[k] for k in ("src", "dst")},
+                  row_group_size=STREAM_BATCH)
+
+        # 1. the reference run: no faults, a commit every 16 batches
+        ck = os.path.join(workdir, "ck_reference")
+        reset_registry()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        rep = run_service(cfg, path, win, checkpoint_dir=ck,
+                          checkpoint_every=every, keep=2)
+        wall = time.perf_counter() - t0
+        check_launches("serve_reference", batches, batches)
+        peak = torch.cuda.max_memory_allocated()
+        check_answers("serve_reference", rep.snapshot())
+        peak_snap = torch.cuda.max_memory_allocated()  # phase 8's includes one
+        want = host_leaves(rep.engine)
+        tree = {"exact": rep.engine.state, "sketch": rep.engine.sketch_state}
+        copies = []
+        for _ in range(3):  # one save's device-to-host copies, on their own
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            _ = [x.detach().cpu() for x in tree_flatten(tree)[0]]
+            copies.append(time.perf_counter() - t1)
+        state_bytes = sum(a.nbytes for a in want)
+        disk = {"checkpoint_bytes": _dir_bytes(ck),
+                "free_bytes": shutil.disk_usage(workdir).free}
+        summary["reference"] = {
+            "wall_s": wall, "packets_per_s": n / wall, **fold_stats(rep.timings),
+            "commit_walls_s": rep.checkpoint_walls,
+            "d2h_copy_s": sorted(copies)[1], "state_bytes": state_bytes,
+            "max_memory_allocated": peak,
+            "max_memory_allocated_with_snapshot": peak_snap, **disk}
+        r = summary["reference"]
+        log(f"[serve_reference] {card}: {batches} folds, {len(rep.checkpoint_walls)} "
+            f"commits; fold p50 {r['p50_s']:.4f} s p99 {r['p99_s']:.4f} s (phase "
+            f"8: 0.0281 s a batch); {r['packets_per_s']:,.0f} packets/s with the "
+            f"commits, {r['steady_packets_per_s']:,.0f} steady (phase 8 both "
+            f"tiers: 8,222,038); commit walls {json.dumps(rep.checkpoint_walls)} "
+            f"s, of which one save's {state_bytes / 2 ** 20:.1f} MiB of "
+            f"device-to-host copies take {r['d2h_copy_s']:.4f} s, the rest np.save "
+            f"+ fsync; max_memory_allocated {peak / 2 ** 30:.2f} GiB, "
+            f"{peak_snap / 2 ** 30:.2f} with the snapshot (phase 8's exact run "
+            f"and snapshot: 4.20); checkpoints {disk['checkpoint_bytes'] / 1e9:.3f} GB on disk "
+            f"(keep=2), {disk['free_bytes'] / 1e9:.1f} GB free")
+        del rep, tree
+        shutil.rmtree(ck)
+
+        # 2. the chaos cocktail and a crash after batch 40: bit-equal to step
+        # 1, and no host sync in a fold but the commits' and the restore's
+        ck = os.path.join(workdir, "ck_chaos")
+        quarantine = os.path.join(workdir, "quarantine")
+        faults = FaultConfig(seed=11, transient_io_rate=0.25, corrupt_rate=0.25,
+                             duplicate_rate=0.2, reorder_rate=0.2,
+                             crash_at_batch=crash_at)
+        marks = []  # (seq, syncs so far, bytes allocated) after each fold
+
+        def on_batch(seq, _):
+            if not marks:
+                torch.cuda.set_sync_debug_mode("warn")
+            syncs = sum(SYNC_WARNING in str(w.message) for w in caught)
+            marks.append((seq, syncs, torch.cuda.memory_allocated()))
+
+        reset_registry()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            try:
+                rep = run_service(cfg, path, win, checkpoint_dir=ck,
+                                  checkpoint_every=every, keep=2, faults=faults,
+                                  retry=RetryPolicy(base_backoff_s=0.0),
+                                  quarantine_dir=quarantine, on_batch=on_batch)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            wall = time.perf_counter() - t0
+        replayed = crash_at + 1 - crash_at // every * every
+        check_launches("serve_chaos", batches + replayed, batches + replayed)
+        h = rep.health
+        if (h.crashes_recovered, h.batches_replayed, h.lost_batches) != (1, replayed, 0) \
+                or h.faults_seen == 0 or rep.restarts != 1 \
+                or not os.path.exists(os.path.join(quarantine, "quarantine.jsonl")):
+            raise AssertionError(f"serve_chaos: restarts {rep.restarts}, health "
+                                 f"{h.as_dict()}, quarantine trail missing?")
+        peak = torch.cuda.max_memory_allocated()
+        got = host_leaves(rep.engine)
+        diff = [i for i, (a, b) in enumerate(zip(got, want))
+                if a.dtype != b.dtype or not np.array_equal(a, b)]
+        if diff or len(got) != 28:
+            raise AssertionError(f"serve_chaos: leaves {diff} differ from the "
+                                 "fault-free run's")
+        check_answers("serve_chaos", rep.snapshot())
+        # syncs between two folds' marks belong to the later fold, or to a
+        # commit between them, or (after the crash's fold) to the restore
+        per_fold, commit_or_restore = [], []
+        for i in range(1, len(marks)):
+            prev = marks[i - 1][0]
+            (commit_or_restore if i - 1 == crash_at or (prev + 1) % every == 0
+             else per_fold).append(marks[i][1] - marks[i - 1][1])
+        life1 = [mem for _, _, mem in marks[:crash_at + 1]]
+        life2 = [mem for _, _, mem in marks[crash_at + 1:]]
+        if any(per_fold):
+            raise AssertionError(f"serve_chaos: host syncs in non-commit folds: "
+                                 f"{per_fold}")
+        if max(life2) > max(life1) + (64 << 20):
+            raise AssertionError(f"serve_chaos: the restored life holds "
+                                 f"{max(life2)} bytes against {max(life1)}: "
+                                 "the dead engine's state outlived the crash")
+        summary["chaos"] = {
+            "wall_s": wall, "packets_per_s": n / wall, **fold_stats(rep.timings),
+            "commit_walls_s": rep.checkpoint_walls,
+            "restore_walls_s": rep.restore_walls, "replay_wall_s": rep.replay_wall_s,
+            "health": h.as_dict(), "faults_seen": h.faults_seen,
+            "non_commit_folds": len(per_fold), "host_syncs_non_commit": sum(per_fold),
+            "host_syncs_commit_or_restore": commit_or_restore,
+            "max_memory_allocated": peak,
+            "allocated_between_folds_life1": max(life1),
+            "allocated_between_folds_life2": max(life2)}
+        c = summary["chaos"]
+        log(f"[serve_chaos] {card}: the cocktail ({h.faults_seen} fault events: "
+            f"{json.dumps(h.as_dict())}) and a crash after batch {crash_at}: "
+            f"restored at watermark {crash_at // every * every}, {replayed} batches "
+            f"replayed, every exact and sketch leaf bit-equal to the fault-free "
+            f"run; host syncs: 0 over {len(per_fold)} non-commit folds, "
+            f"{commit_or_restore} after the commits and the restore; restore "
+            f"{json.dumps(rep.restore_walls)} s, replay {rep.replay_wall_s:.4f} s; "
+            f"fold p50 {c['p50_s']:.4f} s p99 {c['p99_s']:.4f} s; "
+            f"{c['packets_per_s']:,.0f} packets/s; max_memory_allocated "
+            f"{peak / 2 ** 30:.2f} GiB, between folds {max(life1) / 2 ** 30:.3f} "
+            f"GiB before the crash and {max(life2) / 2 ** 30:.3f} after")
+        del rep, got, want
+        shutil.rmtree(ck)
+
+        # 3. degradation at scale 24: 2^23 links of capacity, both switches
+        # before the capture ends, the exact tier frozen before any overflow
+        dcfg = dataclasses.replace(cfg, tier="exact", link_capacity=SERVE_DEGRADE_LINKS)
+        policy = DegradePolicy(to_both=0.5,
+                               to_sketch=1 - STREAM_BATCH / SERVE_DEGRADE_LINKS)
+        tiers = []
+        reset_registry()
+        reset_launches()
+        t0 = time.perf_counter()
+        rep = run_service(dcfg, path, win, degrade=policy,
+                          on_batch=lambda seq, eng: tiers.append(eng.cfg.tier))
+        wall = time.perf_counter() - t0
+        # the first switch backfills the sketch; the fold that reaches
+        # "sketch" is the exact tier's last
+        to_both = next(i for i, t in enumerate(tiers) if t != "exact")
+        to_sketch = tiers.index("sketch")
+        check_launches("serve_degrade", to_sketch + 1, batches - 1 - to_both,
+                       backfills=1)
+        st = rep.engine.state
+        live = int(st.n_links)
+        snap = rep.snapshot()
+        if snap.tier != "sketch" or int(st.overflow) != 0 \
+                or snap.sketch.n_packets != n:
+            raise AssertionError(f"serve_degrade: tier {snap.tier}, overflow "
+                                 f"{int(st.overflow)}, sketch packets "
+                                 f"{snap.sketch.n_packets}")
+        check_answers("serve_degrade", snap, exact=False)
+        # the backfill's own wall on the frozen table (launches not counted)
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            update_sketch(init_sketch(cfg.sketch_config, dev), st.src, st.dst,
+                          st.n_links, weights=st.packets)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+        summary["degrade"] = {
+            "wall_s": wall, "to_both_after_batch": to_both,
+            "to_sketch_after_batch": to_sketch, "live_links_frozen": live,
+            "backfill_s": sorted(walls)[1], **fold_stats(rep.timings)}
+        log(f"[serve_degrade] {card}: link_capacity {SERVE_DEGRADE_LINKS:,}: "
+            f"exact -> both after batch {to_both}, -> sketch after batch "
+            f"{to_sketch} ({live:,} live links frozen, overflow 0); the sketch "
+            f"holds all {n:,} packets; backfill (one weighted update_sketch over "
+            f"{SERVE_DEGRADE_LINKS:,} rows) {summary['degrade']['backfill_s']:.4f} "
+            f"s; service wall {wall:.3f} s")
+        del rep, st, snap
+
+    # 4. a crash after the switch, at scale 20: the restored service comes
+    # back degraded and ends bit-equal to the uninterrupted degraded run
+    n20 = 1 << ALGO_SCALE
+    groups20, cap20 = 16, n20 // 2
+    rows20 = n20 // groups20
+    cols = synthetic_packets(n20, scale=ALGO_SCALE, seed=SEED)
+    win20 = window_column(cols["ts"], N_WINDOWS)
+    cfg20 = StreamConfig(batch_capacity=rows20, link_capacity=cap20,
+                         n_windows=N_WINDOWS, ip_bins=IP_BINS, device=str(dev))
+    policy20 = DegradePolicy(to_both=0.3, to_sketch=1 - rows20 / cap20)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve20_") as workdir:
+        path20 = os.path.join(workdir, "capture.plq")
+        write_plq(path20, cols, row_group_size=rows20)
+        reset_launches()
+        plain = run_service(cfg20, path20, win20, degrade=policy20)
+        crash20 = groups20 - 2
+        rep = run_service(cfg20, path20, win20, degrade=policy20,
+                          checkpoint_dir=os.path.join(workdir, "ck"),
+                          checkpoint_every=4, faults=FaultConfig(crash_at_batch=crash20))
+        launches["serve_degrade_crash"] = read_launches()
+        hp, hr = plain.health, rep.health
+        if hp.degraded_to != "sketch" or hp.degraded_at_batch > crash20 // 4 * 4:
+            raise AssertionError(f"scale {ALGO_SCALE}: the switch came at "
+                                 f"{hp.degraded_at_batch}, after the restored step")
+        if (rep.engine.cfg.tier, hr.degraded_at_batch, hr.crashes_recovered) != \
+                ("sketch", hp.degraded_at_batch, 1):
+            raise AssertionError(f"scale {ALGO_SCALE}: restored tier "
+                                 f"{rep.engine.cfg.tier}, health {hr.as_dict()}")
+        a, b = host_leaves(rep.engine), host_leaves(plain.engine)
+        if any(not np.array_equal(x, y) for x, y in zip(a, b)) or len(a) != 28:
+            raise AssertionError(f"scale {ALGO_SCALE}: the crashed degraded run "
+                                 "differs from the uninterrupted one")
+        log(f"[serve_degrade_crash] scale {ALGO_SCALE}, {groups20} batches, "
+            f"{cap20:,} links: degraded to sketch at batch "
+            f"{hp.degraded_at_batch}, crash after batch {crash20}, restored "
+            f"degraded; every leaf bit-equal to the uninterrupted degraded run; "
+            f"launches {json.dumps(launches['serve_degrade_crash'])}")
+        del plain, rep
+
+    # 5. the CLI
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_cli_") as workdir:
+        metrics = os.path.join(workdir, "m.jsonl")
+        argv = ["--scale", str(CLI_SCALE), "--n-packets", str(1 << CLI_SCALE + 2),
+                "--batch-size", str(1 << CLI_SCALE - 2), "--tier", "both", "--chaos",
+                "--fault-seed", "11", "--crash-at-batch", "4",
+                "--checkpoint-dir", os.path.join(workdir, "ck"),
+                "--quarantine-dir", os.path.join(workdir, "q"),
+                "--metrics-out", metrics, "--verify", "--workdir", workdir,
+                "--device", str(dev)]
+        out = io.StringIO()
+        reset_launches()
+        with contextlib.redirect_stdout(out):
+            rc = serve_main(argv)
+        log(out.getvalue())
+        lines = ("[serve] verify OK", "[serve] health:", "crashes=1",
+                 "[serve] batch latency:")
+        if rc != 0 or any(x not in out.getvalue() for x in lines) \
+                or not os.path.exists(metrics) or not os.path.exists(metrics + ".prom"):
+            raise AssertionError(f"python -m repro_torch.launch.serve exited {rc}, "
+                                 "left out a line or wrote no metrics")
+        # 16 folds and the one replayed (a commit after every batch), then
+        # --verify's uninterrupted exact run
+        check_launches("serve_cli", 17 + 16, 17)
+        err = io.StringIO()
+        with contextlib.redirect_stdout(io.StringIO()), \
+                contextlib.redirect_stderr(err):
+            try:
+                serve_main(argv + ["--distributed"])
+                rc = 0
+            except SystemExit as e:
+                rc = e.code
+        if rc != 2 or "item 10" not in err.getvalue():
+            raise AssertionError(f"the serve CLI with --distributed exited {rc}")
+        log("[serve_cli] exit 0 with the verify OK, health (crashes=1) and batch "
+            "latency lines, metrics JSONL and .prom written; --distributed exits 2")
+    reset_registry()
     return launches, summary
 
 
@@ -2091,16 +2499,22 @@ def main() -> int:
             f"on phase 3's table (scale {SCALE})")
         ab_launches, ab = ab_baselines_and_fused(dev, workdir, table3, ref)
         del table3
+        t4 = time.perf_counter()
+        log(f"\n== phase 10: the fault-tolerant service on phase 3's capture "
+            f"({STREAM_BATCH:,}-row groups), then the serve CLI")
+        serve_svc_launches, service = fault_tolerant_service(dev, capture, ref, card)
         log(f"phase 6 took {t1 - t0:.1f} s, phase 7 {t2 - t1:.1f} s, phase 8 "
-            f"{t3 - t2:.1f} s, phase 9 {time.perf_counter() - t3:.1f} s")
+            f"{t3 - t2:.1f} s, phase 9 {t4 - t3:.1f} s, phase 10 "
+            f"{time.perf_counter() - t4:.1f} s")
 
     # launches of the main path's runs only; the algorithms timed alone and
     # the comparisons with the plain versions are counted nowhere
     by_kernel = lambda k, runs: {r: v[k] for r, v in runs.items() if v[k]}
     launches = {**main_launches, "algorithms": algo_launches, "cli": cli_launches,
                 "segment_reduce": segsum_launches, "serve": serve_launches,
-                **stream_launches, **ab_launches}
-    hll_shape = [s for s in checks["segment_max"][1] if s["case"].startswith("h:")]
+                **stream_launches, **ab_launches, **serve_svc_launches}
+    hll_shape = [s for s in checks["segment_max"][1]
+                 if s["case"].startswith(("h:", "h-"))]
     kernels = [
         record("histogram", "src/repro_torch/kernels/csrc/histogram.cu",
                "src/repro/kernels/histogram.py:108",
@@ -2126,7 +2540,7 @@ def main() -> int:
             raise AssertionError(f"{rec['name']}: no launch on the main path")
     log(json.dumps({"sketch_tier_s": sketch_s, "algorithms_alone_ms": algo_ms,
                     "algorithms_alone_launches": alone_launches, "serve": serve,
-                    "stream": stream, "ab_and_fused": ab}))
+                    "stream": stream, "ab_and_fused": ab, "service": service}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

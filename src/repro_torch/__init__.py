@@ -2,7 +2,8 @@
 and CUDA (NVIDIA Hopper), ported from the JAX package ``repro``.
 
 The layout mirrors ``repro`` (``core/``, ``kernels/``, ``data/``, ``obs/``,
-``challenge/``) and each module names its reference counterpart.  The port
+``challenge/``, ``stream/``, ``models/``, ``train/``, ``launch/``) and each
+module names its reference counterpart.  The port
 imports nothing of ``repro`` and nothing of JAX; ``convert`` carries tables
 and results across for the tests that hold the two against each other.
 """

@@ -1,3 +1,5 @@
 """Capture substrate of the port (copies of ``repro/data``): RMAT traffic
 and adversarial scenarios, columnar ``plq`` and row-major ``pcaplite``
-captures, the background ``Prefetcher`` and the ingest health ledger."""
+captures, the background ``Prefetcher``, and the fault layer the streaming
+service reads through (seeded chaos, retries, quarantine, the health
+ledger)."""

@@ -7,6 +7,7 @@ from .trace import (  # noqa: F401
     export_jsonl,
     get_tracer,
     read_jsonl,
+    reset_tracer,
     run_context,
     span,
 )
@@ -26,6 +27,7 @@ __all__ = [
     "Tracer",
     "span",
     "get_tracer",
+    "reset_tracer",
     "run_context",
     "export_jsonl",
     "read_jsonl",

@@ -7,7 +7,7 @@ for correlation across processes and ``time.perf_counter()`` for durations.
 Records land in a bounded in-memory ring and, optionally, stream through a
 per-tracer ``sink`` callable as they close.  Every exported record is
 schema-versioned and stamped with the run context.  The reference's counter
-events and tracer reset are not copied: nothing in the port uses them yet.
+events are not copied: nothing in the port uses them yet.
 
 The one change from the reference: :func:`run_context` stamps the torch
 version, the CUDA version torch was built with and the device name in place
@@ -32,6 +32,7 @@ __all__ = [
     "Span",
     "Tracer",
     "get_tracer",
+    "reset_tracer",
     "span",
     "run_context",
     "export_jsonl",
@@ -226,6 +227,15 @@ _GLOBAL = Tracer()
 
 
 def get_tracer() -> Tracer:
+    return _GLOBAL
+
+
+def reset_tracer(capacity: int = 4096,
+                 sink: Optional[Callable[[Dict[str, Any]], None]] = None
+                 ) -> Tracer:
+    """Replace the global tracer (tests; serve's ``--metrics-out`` sink)."""
+    global _GLOBAL
+    _GLOBAL = Tracer(capacity=capacity, sink=sink)
     return _GLOBAL
 
 

@@ -9,8 +9,14 @@ answerable at any point, equal to a one-shot batch run.  CLI:
 
     PYTHONPATH=src python -m repro_torch.stream.run --scale 12 --batches 3
 
-The fault-tolerant service of ``repro.stream.recovery`` (checkpoints,
-crash, restore and replay) is not ported yet (ROADMAP.md queue 1 item 8).
+The fault-tolerant service (:mod:`repro_torch.stream.recovery`) runs the
+engine under watermarked atomic checkpoints, seeded chaos, bounded
+retries, a dead-letter quarantine, crash, restore and replay, and
+pressure-driven degradation to the sketch tier.  CLI:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --scale 10 \
+        --n-packets 2048 --batch-size 256 --chaos --crash-at-batch 4 \
+        --checkpoint-dir /tmp/ck --verify --device cpu
 """
 from .engine import (
     StreamBatchTimings,
@@ -26,10 +32,23 @@ from .engine import (
     update_state_naive,
 )
 from .algorithms import snapshot_algorithms
+from .recovery import (
+    DegradePolicy,
+    RestorePoint,
+    ServiceReport,
+    SimulatedCrash,
+    StreamCheckpointer,
+    run_service,
+)
 from .state import StreamState, init_state
 
 __all__ = [
+    "DegradePolicy",
+    "RestorePoint",
+    "ServiceReport",
+    "SimulatedCrash",
     "StreamBatchTimings",
+    "StreamCheckpointer",
     "StreamConfig",
     "StreamEngine",
     "StreamSnapshot",
@@ -38,6 +57,7 @@ __all__ = [
     "init_state",
     "link_table",
     "merge_states",
+    "run_service",
     "snapshot_algorithms",
     "steady_state",
     "stream_plq",

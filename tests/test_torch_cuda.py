@@ -750,3 +750,105 @@ def test_histogram_at_the_naive_overlap_shape(dev):
     want = ops.histogram(ids, 8, backend="torch")
     torch.cuda.synchronize()
     assert torch.equal(got, want) and int(got.double().sum()) == int((ids >= 0).sum())
+
+
+# --- the fault-tolerant service ----------------------------------------------
+
+def _service_capture(tmp_path):
+    """A scale-12 RMAT capture of 2^12 packets as a plq of 8 row groups."""
+    from repro_torch.challenge.pipeline import window_column
+    from repro_torch.data.plq import write_plq
+    from repro_torch.data.rmat import synthetic_packets
+
+    cols = synthetic_packets(1 << 12, scale=12, seed=2)
+    path = str(tmp_path / "cap.plq")
+    write_plq(path, cols, row_group_size=1 << 9)
+    return path, window_column(cols["ts"], 8)
+
+
+def _service_cfg(dev, **kw):
+    from repro_torch.core.sketch import SketchConfig
+    from repro_torch.stream import StreamConfig
+
+    return StreamConfig(batch_capacity=1 << 9, link_capacity=1 << 12, tier="both",
+                        sketch=SketchConfig(), device=str(dev), **kw)
+
+
+def _assert_engines_equal(got, want):
+    for state in ("state", "sketch_state"):
+        pairs = list(zip(tensor_leaves(getattr(got, state)),
+                         tensor_leaves(getattr(want, state))))
+        assert len(pairs) == 14
+        for (name, a), (_, b) in pairs:
+            assert a.is_cuda and torch.equal(a, b), name
+
+
+def test_service_folds_without_a_host_sync(dev, tmp_path, monkeypatch):
+    """``run_service`` on the card, both tiers, a commit every 3 batches:
+    every fold after the first runs with every synchronizing call an error;
+    only the commits (and the final wait) may sync."""
+    from repro_torch.stream import recovery, run_service
+
+    path, win = _service_capture(tmp_path)
+    save = recovery.StreamCheckpointer.save
+
+    def unchecked_save(self, engine, watermark):
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return save(self, engine, watermark)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+    monkeypatch.setattr(recovery.StreamCheckpointer, "save", unchecked_save)
+    seqs = []
+
+    def on_batch(seq, _):
+        seqs.append(seq)
+        torch.cuda.set_sync_debug_mode("default" if seq == 7 else "error")
+
+    try:
+        report = run_service(_service_cfg(dev), path, win,
+                             checkpoint_dir=str(tmp_path / "ck"),
+                             checkpoint_every=3, on_batch=on_batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert seqs == list(range(8)) and report.health.checkpoints_committed == 3
+
+
+def test_service_checkpoint_roundtrip_on_the_card(dev, tmp_path):
+    """A card engine saved and restored: every leaf bit-equal, on the card."""
+    from repro_torch.stream import StreamCheckpointer, StreamEngine, stream_plq
+
+    path, win = _service_capture(tmp_path)
+    cfg = _service_cfg(dev)
+    eng = StreamEngine(cfg)
+    stream_plq(eng, path, win)
+    StreamCheckpointer(str(tmp_path / "ck"), cfg).save(eng, watermark=8)
+    rp = StreamCheckpointer(str(tmp_path / "ck"), cfg).restore_latest()
+    back = StreamEngine(cfg)
+    back.load(rp.state, rp.sketch_state, rp.health)
+    _assert_engines_equal(back, eng)
+
+
+@pytest.mark.parametrize("crash_at", [0, 3, 7])
+def test_service_crash_and_replay_on_the_card(dev, tmp_path, crash_at):
+    """The chaos cocktail and a crash on the card: the recovered engine is
+    bit-equal to ``stream_plq``'s, through the kernels."""
+    from repro_torch.data.faults import FaultConfig, RetryPolicy
+    from repro_torch.stream import StreamEngine, run_service, stream_plq
+
+    path, win = _service_capture(tmp_path)
+    cfg = _service_cfg(dev)
+    before = hist_kernel.LAUNCHES
+    report = run_service(cfg, path, win, checkpoint_dir=str(tmp_path / "ck"),
+                         checkpoint_every=2, retry=RetryPolicy(base_backoff_s=0.0),
+                         faults=FaultConfig(seed=11, transient_io_rate=0.25,
+                                            corrupt_rate=0.25, duplicate_rate=0.2,
+                                            reorder_rate=0.2, crash_at_batch=crash_at))
+    replayed = crash_at + 1 - crash_at // 2 * 2
+    assert hist_kernel.LAUNCHES - before == 8 + replayed
+    assert report.health.batches_replayed == replayed and report.restarts == 1
+    oracle = StreamEngine(cfg)
+    stream_plq(oracle, path, win)
+    _assert_engines_equal(report.engine, oracle)

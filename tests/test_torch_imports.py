@@ -34,7 +34,8 @@ def test_scan_covers_the_port():
             "algorithms.py", "sketch.py", "segreduce.py", "flash_attention.py",
             "segment_matmul.py", "transformer.py", "layers.py",
             "granite_8b.py", "engine.py", "state.py", "metrics.py",
-            "scenarios.py", "faults.py"} <= names
+            "scenarios.py", "faults.py", "checkpoint.py", "recovery.py",
+            "serve.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
