@@ -18,5 +18,5 @@ def full_config() -> TransformerConfig:
 def smoke_config() -> TransformerConfig:
     return TransformerConfig(
         name=ARCH_ID + "-smoke", n_layers=2, d_model=64, n_heads=8,
-        n_kv_heads=2, d_ff=128, vocab=128, dtype=torch.float32,
+        n_kv_heads=2, d_ff=128, vocab=128, dtype=torch.float32, remat=False,
     )

@@ -18,5 +18,5 @@ def smoke_config() -> TransformerConfig:
     return TransformerConfig(
         name=ARCH_ID + "-smoke", n_layers=2, d_model=48, n_heads=6,
         n_kv_heads=6, d_ff=96, vocab=128, tie_embeddings=True,
-        dtype=torch.float32,
+        dtype=torch.float32, remat=False,
     )

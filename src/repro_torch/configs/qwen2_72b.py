@@ -20,4 +20,5 @@ def smoke_config() -> TransformerConfig:
     return TransformerConfig(
         name=ARCH_ID + "-smoke", n_layers=2, d_model=64, n_heads=8,
         n_kv_heads=2, d_ff=160, vocab=128, qkv_bias=True, dtype=torch.float32,
+        remat=False,
     )

@@ -17,7 +17,12 @@ builds its packet table with :func:`table_from_numpy` too.
 down to its tensors, for comparing two states on the device.
 :func:`transformer_params_from_numpy` builds the port's ``Transformer``
 from the reference's parameter pytree, so both compute with one set of
-weights.
+weights; :func:`transformer_param_tree` is the other way, the model's own
+parameters in the reference's nested layout (what the port's trainer
+trains and checkpoints, so that a step either package writes restores in
+the other).  :func:`train_state_from_numpy` and :func:`train_state_to_numpy`
+carry a whole training state, ``{"params": ..., "opt": {"step", "m",
+"v"}}``, across both ways.
 """
 from __future__ import annotations
 
@@ -30,11 +35,14 @@ import torch
 from .core.sketch import SketchState
 from .core.table import Table, resolve_device
 
-if TYPE_CHECKING:  # the model layer loads only when a transformer is built
+if TYPE_CHECKING:  # the model and training layers load only when used
     from .models.transformer import Transformer, TransformerConfig
+    from .train.loop import TrainState
 
 __all__ = ["table_from_numpy", "sketch_state_from_numpy", "results_to_numpy",
-           "tensor_leaves", "transformer_params_from_numpy"]
+           "tensor_leaves", "transformer_params_from_numpy",
+           "transformer_param_tree", "train_state_from_numpy",
+           "train_state_to_numpy"]
 
 
 def table_from_numpy(columns: Mapping[str, np.ndarray], n_valid: int,
@@ -118,6 +126,28 @@ def _weight(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
 
 
+def _reference_paths(cfg: TransformerConfig) -> Dict[str, Tuple[str, ...]]:
+    """Each port weight's path in the reference's parameter pytree
+    (``repro.models.transformer.init_params``)."""
+    paths = {
+        "embed": ("embed", "table"),
+        "attn_norm": ("layers", "attn_norm", "g"),
+        "wq": ("layers", "wq", "w"), "wk": ("layers", "wk", "w"),
+        "wv": ("layers", "wv", "w"), "wo": ("layers", "wo", "w"),
+        "mlp_norm": ("layers", "mlp_norm", "g"),
+        "w_gate": ("layers", "mlp", "gate", "w"),
+        "w_up": ("layers", "mlp", "up", "w"),
+        "w_down": ("layers", "mlp", "down", "w"),
+        "final_norm": ("final_norm", "g"),
+    }
+    if cfg.qkv_bias:
+        paths.update(bq=("layers", "wq", "b"), bk=("layers", "wk", "b"),
+                     bv=("layers", "wv", "b"))
+    if not cfg.tie_embeddings:
+        paths["lm_head"] = ("lm_head", "w")
+    return paths
+
+
 def transformer_params_from_numpy(params: Mapping, cfg: TransformerConfig,
                                   device="cuda") -> Transformer:
     """The port's ``Transformer`` on ``device`` holding the weights of the
@@ -131,20 +161,65 @@ def transformer_params_from_numpy(params: Mapping, cfg: TransformerConfig,
     from .models.transformer import Transformer
 
     device = resolve_device(device)
-    layers = params["layers"]
-    names = {
-        "embed": params["embed"]["table"],
-        "attn_norm": layers["attn_norm"]["g"],
-        "wq": layers["wq"]["w"], "wk": layers["wk"]["w"], "wv": layers["wv"]["w"],
-        "wo": layers["wo"]["w"],
-        "mlp_norm": layers["mlp_norm"]["g"],
-        "w_gate": layers["mlp"]["gate"]["w"], "w_up": layers["mlp"]["up"]["w"],
-        "w_down": layers["mlp"]["down"]["w"],
-        "final_norm": params["final_norm"]["g"],
-    }
-    if cfg.qkv_bias:
-        names.update(bq=layers["wq"]["b"], bk=layers["wk"]["b"], bv=layers["wv"]["b"])
-    if not cfg.tie_embeddings:
-        names["lm_head"] = params["lm_head"]["w"]
-    return Transformer(cfg, weights={k: _weight(v, cfg.dtype, device)
-                                     for k, v in names.items()})
+    weights = {}
+    for name, path in _reference_paths(cfg).items():
+        leaf = params
+        for key in path:
+            leaf = leaf[key]
+        weights[name] = _weight(leaf, cfg.dtype, device)
+    return Transformer(cfg, weights=weights)
+
+
+def transformer_param_tree(model: Transformer) -> Dict:
+    """The model's parameters, the tensors themselves, nested as the
+    reference's parameter pytree: ``{"embed": {"table"}, "final_norm":
+    {"g"}, "layers": {...}, ["lm_head": {"w"}]}``."""
+    tree: Dict = {}
+    for name, path in _reference_paths(model.cfg).items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = getattr(model, name)
+    return tree
+
+
+def train_state_from_numpy(tree: Mapping, cfg: TransformerConfig, device="cuda"
+                           ) -> Tuple[Transformer, TrainState]:
+    """The port's model and training state on ``device`` from the
+    reference's ``TrainState.tree()`` (``{"params": ..., "opt": {"step",
+    "m", "v"}}``, leaves as numpy arrays): the weights in ``cfg.dtype``,
+    the moments in their own type (float32 or bfloat16), the step a 0-d
+    int32 tensor; the parameters require grad."""
+    from .train.checkpoint import tree_flatten, tree_unflatten
+    from .train.loop import TrainState
+
+    model = transformer_params_from_numpy(tree["params"], cfg, device)
+    params = transformer_param_tree(model)
+    leaves, treedef = tree_flatten(params)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    device = model.device
+
+    def moment(x):
+        a = np.asarray(x)
+        dt = (torch.bfloat16 if a.dtype.name == "bfloat16"
+              else torch.from_numpy(np.empty(0, a.dtype)).dtype)
+        return _weight(a, dt, device)
+
+    moments = {k: tree_unflatten(treedef, [
+        moment(x) for x in tree_flatten(tree["opt"][k])[0]]) for k in ("m", "v")}
+    step = torch.full((), int(np.asarray(tree["opt"]["step"])),
+                      dtype=torch.int32, device=device)
+    return model, TrainState(params=params, opt={"step": step, **moments})
+
+
+def train_state_to_numpy(state: TrainState) -> Dict:
+    """``state.tree()`` with every leaf on the host as numpy, in the
+    reference's layout; a bfloat16 leaf widens to float32 (exactly: numpy
+    has no bfloat16)."""
+    from .train.checkpoint import tree_flatten, tree_unflatten
+
+    leaves, treedef = tree_flatten(state.tree())
+    return tree_unflatten(treedef, [
+        x.detach().to(torch.float32 if x.dtype == torch.bfloat16 else x.dtype)
+        .cpu().numpy() for x in leaves])

@@ -1,18 +1,74 @@
-"""Background prefetch of host batches — the port's copy of
-``Prefetcher`` from ``repro/data/pipeline.py`` (the rest of that module
-serves training and is not ported).
+"""Host batches — the port's copies of ``Prefetcher`` and ``lm_batches``
+from ``repro/data/pipeline.py`` (``recsys_batches`` comes with the recsys
+slice), and ``PinnedStager``, which carries them to the card.
 
-A producer thread keeps ``depth`` batches ahead of the consumer, so host
-reads overlap device work; a producer's exception is re-raised in the
-consumer on its next ``__next__``.
+A ``Prefetcher``'s producer thread keeps ``depth`` batches ahead of the
+consumer, so host reads overlap device work; a producer's exception is
+re-raised in the consumer on its next ``__next__``.  ``lm_batches`` is the
+deterministic synthetic LM stream, bit-equal to the reference's for every
+``(seed, step, shard)``.
 """
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterator, Optional
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
-__all__ = ["Prefetcher"]
+import numpy as np
+import torch
+
+__all__ = ["PinnedStager", "Prefetcher", "lm_batches"]
+
+
+class PinnedStager:
+    """Host batches to ``device`` through two pinned host buffers that take
+    turns, each copied with ``non_blocking=True``: the host fills batch i+1
+    while the card still reads batch i, and no copy waits for the host.
+
+    ``take(shapes)`` returns the next slot's buffers by name, as numpy
+    arrays for the host to fill, once the copy that last read that slot is
+    done (the event recorded after it); ``send()`` queues their copies to
+    the device, records that event and returns the device tensors.  Off
+    the card the buffers are plain host memory and ``send`` returns them
+    (``Tensor.to`` of a tensor already there), to be used before the slot
+    comes round again.
+    """
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._pin = self.device.type == "cuda"
+        self._buffers: List[Dict[str, torch.Tensor]] = [{}, {}]
+        self._copied: List[Optional[torch.cuda.Event]] = [None, None]
+        self._slot = 0
+        self._names: Sequence[str] = ()
+
+    def take(self, shapes: Dict[str, Tuple[Tuple[int, ...], np.dtype]]
+             ) -> Dict[str, np.ndarray]:
+        if self._copied[self._slot] is not None:
+            self._copied[self._slot].synchronize()  # the copy that read it is done
+        buffers = self._buffers[self._slot]
+        for name, (shape, dtype) in shapes.items():
+            buf = buffers.get(name)
+            if (buf is None or buf.shape != tuple(shape)
+                    or buf.numpy().dtype != np.dtype(dtype)):
+                buf = torch.from_numpy(np.empty(shape, dtype))
+                buffers[name] = buf.pin_memory() if self._pin else buf
+        self._names = list(shapes)
+        return {name: buffers[name].numpy() for name in self._names}
+
+    def send(self, wait: bool = False) -> Dict[str, torch.Tensor]:
+        """The taken buffers on the device; ``wait=True`` waits for the
+        copies (to time them alone)."""
+        slot, self._slot = self._slot, self._slot ^ 1
+        buffers = self._buffers[slot]
+        out = {name: buffers[name].to(self.device, non_blocking=True)
+               for name in self._names}
+        if self._pin:
+            self._copied[slot] = torch.cuda.Event()
+            self._copied[slot].record()
+            if wait:
+                self._copied[slot].synchronize()
+        return out
 
 
 class Prefetcher:
@@ -133,3 +189,30 @@ class Prefetcher:
                 raise self._err
             raise StopIteration
         return item
+
+
+def lm_batches(
+    batch: int,
+    seq_len: int,
+    vocab: int,
+    seed: int = 0,
+    shard_id: int = 0,
+    n_shards: int = 1,
+    start_step: int = 0,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Deterministic synthetic LM stream: batch(step, shard) is reproducible.
+
+    Tokens follow a Zipfian marginal (realistic softmax pressure) with a
+    shifted-copy structure so the LM objective has learnable signal.
+    ``n_shards`` is the reference's, which no draw reads.
+    """
+    step = start_step
+    while True:
+        rng = np.random.default_rng((seed, step, shard_id))
+        z = rng.zipf(1.3, size=(batch, seq_len + 1))
+        toks = (z % vocab).astype(np.int32)
+        # plant learnable structure: every other token repeats its predecessor
+        toks[:, 2::2] = toks[:, 1:-1:2]
+        yield {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+               "step": np.int64(step), "shard": np.int64(shard_id)}
+        step += 1

@@ -24,6 +24,15 @@ arithmetic of the decode path is mirrored by
 else; the dispatch between kernel and plain version lives in
 :mod:`repro_torch.kernels.ops`.  ``LAUNCHES`` counts the wrapper's kernel
 launches, so a run can show that its main path went through the kernel.
+
+:class:`FlashAttention` makes the kernel differentiable, as the reference's
+``custom_vjp`` (``flash_attention.py:143-171``) makes the TPU kernel: the
+kernel runs the forward and saves ``(q, k, v)`` (``_fa_fwd``), and the
+backward is the plain version's autograd on them (``_fa_bwd``, the exact
+``jax.vjp`` of ``ref_attention``).  The reference has no backward kernel;
+neither has the port.  The backward recomputes the plain forward, so it
+holds the plain version's ``(B, Hq, Lq, Lkv)`` float32 buffers (logits,
+probabilities and their gradients) for one layer at a time.
 """
 from __future__ import annotations
 
@@ -32,11 +41,11 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import build
+from . import build, ref
 from ._device import _on_device, _sm_count
 
 __all__ = ["LAUNCHES", "HEAD_DIMS", "DECODE_ROWS", "attention_path",
-           "decode_split", "flash_attention_cuda"]
+           "decode_split", "flash_attention_cuda", "FlashAttention"]
 
 LAUNCHES = 0
 
@@ -198,3 +207,24 @@ def flash_attention_cuda(
         raise RuntimeError(f"attention kernel launch failed: cudaError {err}")
     LAUNCHES += 1
     return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention_cuda`` forward, ``ref.ref_attention``'s autograd
+    backward: ``FlashAttention.apply(q, k, v, causal, window, scale)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.attrs = (causal, window, scale)
+        return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                    scale=scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        causal, window, scale = ctx.attrs
+        q, k, v = (x.detach().requires_grad_() for x in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = ref.ref_attention(q, k, v, causal=causal, window=window,
+                                    scale=scale)
+        return (*torch.autograd.grad(out, (q, k, v), g), None, None, None)

@@ -30,7 +30,7 @@ from typing import Optional
 import torch
 
 from . import ref
-from .flash_attention import flash_attention_cuda
+from .flash_attention import FlashAttention, flash_attention_cuda
 from .histogram import histogram_cuda
 from .segment_matmul import segment_matmul_cuda
 from .segreduce import segment_max_cuda
@@ -194,6 +194,13 @@ def attention(
     Hkv, Lkv, D)``, the ends of the two ranges aligned; ``causal`` and
     ``window`` (keys in ``(pos - window, pos]``) mask; float32 softmax, q's
     type out.  The kernel reads strided views (a cut of a KV cache) in
-    place."""
-    impl = flash_attention_cuda if _use_kernel(backend, q) else ref.ref_attention
-    return impl(q, k, v, causal=causal, window=window, scale=scale)
+    place.  Where autograd records (grad enabled and an operand requiring
+    it) the kernel runs as the forward of ``FlashAttention``, whose
+    backward is the plain version's autograd, as the reference's
+    ``custom_vjp``; the plain version is differentiable as it is."""
+    if not _use_kernel(backend, q):
+        return ref.ref_attention(q, k, v, causal=causal, window=window, scale=scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, scale)
+    return flash_attention_cuda(q, k, v, causal=causal, window=window, scale=scale)

@@ -423,13 +423,26 @@ def ref_attention(
     ``(pos - window, pos]``.  Computes in float32 and returns q's type.  A
     row that sees no key (only when ``Lq > Lkv``) is 0, the kernel's
     ``l == 0`` case; the reference gives NaN there.
+
+    Differentiable: its autograd is the backward of the attention kernel's
+    ``autograd.Function`` (``kernels/flash_attention.py``), as ``jax.vjp``
+    of the reference's ``ref_attention`` is ``_fa_bwd``'s.  Nothing is
+    written in place into a tensor autograd saves, and each kv head is
+    widened to its query heads by ``expand``, whose backward is a sum over
+    the group (a deterministic reduction, where ``repeat_interleave``'s is
+    an atomic ``index_add_``), so two backward passes over the same inputs
+    are bit-equal.
     """
     b, hq, lq, d = q.shape
     hkv, lkv = k.shape[1], k.shape[2]
     group = hq // hkv
     scale = (d ** -0.5) if scale is None else scale
-    kk = k.repeat_interleave(group, dim=1).to(torch.float32)
-    vv = v.repeat_interleave(group, dim=1).to(torch.float32)
+
+    def widen(x):  # (B, Hkv, Lkv, D) -> (B, Hq, Lkv, D), float32
+        x = x.to(torch.float32)[:, :, None].expand(b, hkv, group, lkv, d)
+        return x.reshape(b, hq, lkv, d)
+
+    kk, vv = widen(k), widen(v)
     logits = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32), kk) * scale
     q_pos = torch.arange(lq, device=q.device)[:, None] + (lkv - lq)
     k_pos = torch.arange(lkv, device=q.device)[None, :]
@@ -440,7 +453,9 @@ def ref_attention(
         mask &= k_pos > q_pos - window
     probs = torch.softmax(logits.masked_fill_(~mask, float("-inf")), dim=-1)
     del logits  # (B, Hq, Lq, Lkv) float32: 8.6 GB at Lq = Lkv = 8192, Hq = 32
-    probs.masked_fill_(~mask.any(dim=-1, keepdim=True), 0.0)
+    # out of place: softmax saves its output for the backward, so the rows
+    # that see no key are zeroed in one more (B, Hq, Lq, Lkv) float32 buffer
+    probs = probs.masked_fill(~mask.any(dim=-1, keepdim=True), 0.0)
     return (probs @ vv).to(q.dtype)
 
 

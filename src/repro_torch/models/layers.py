@@ -1,5 +1,6 @@
 """Layers of the dense decoder — the port of ``repro/models/layers.py``
-(``dense``, ``rmsnorm``, ``swiglu`` and their initialisers).
+(``dense``, ``rmsnorm``, ``swiglu``, their initialisers and
+``cross_entropy_loss``).
 
 The reference's layers are (init, apply) pairs over dicts of arrays; here
 the apply functions take the weight tensors themselves, and the
@@ -16,7 +17,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-__all__ = ["dense", "rmsnorm", "swiglu", "dense_init", "embedding_init"]
+__all__ = ["dense", "rmsnorm", "swiglu", "dense_init", "embedding_init",
+           "cross_entropy_loss"]
 
 
 def dense(x: torch.Tensor, w: torch.Tensor,
@@ -57,3 +59,18 @@ def embedding_init(gen: torch.Generator, vocab: int, d: int,
     return torch.randn(vocab, d, generator=gen, dtype=dtype,
                        device=gen.device).mul_(0.02)
 
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross-entropy in float32 (``layers.py:125``): logits
+    ``(..., V)``, integer labels ``(...)``; with ``mask``, the masked mean
+    over at least one token.  A 0-d float32 tensor on the logits' device."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.to(torch.int64)[..., None])[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        mask = mask.to(torch.float32)
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

@@ -1,12 +1,17 @@
-"""The dense decoder-only transformer and its serving path — the port of
-``repro/models/transformer.py`` for qwen2, minicpm and granite.
+"""The dense decoder-only transformer — the port of
+``repro/models/transformer.py`` for qwen2, minicpm and granite: training
+(``forward`` with autograd, remat, :func:`loss_fn`) and serving.
 
 :class:`Transformer` holds the weights (layers stacked on a leading
-``n_layers`` axis, as the reference's pytree holds them) and serves:
-:meth:`~Transformer.forward` (inference only: no autograd path yet),
-:meth:`~Transformer.init_kv_cache`, :meth:`~Transformer.prefill` and
-:meth:`~Transformer.decode_step`, with the reference's names and semantics.
-Two differences:
+``n_layers`` axis, as the reference's pytree holds them) and computes
+:meth:`~Transformer.forward`, :meth:`~Transformer.init_kv_cache`,
+:meth:`~Transformer.prefill` and :meth:`~Transformer.decode_step`, with the
+reference's names and semantics; :func:`loss_fn` is the reference's.
+``forward`` is differentiable once the weights require grad (the trainer
+marks them); serving runs under ``torch.no_grad``.  With ``cfg.remat``
+each layer of a differentiated forward runs under
+``torch.utils.checkpoint`` (:func:`_remat`), the counterpart of
+``_remat_wrap`` around the reference's scanned body.  Differences:
 
 * the KV cache is written in place (the reference returns new arrays), and
   its ``pos`` is a Python int;
@@ -21,27 +26,35 @@ Two differences:
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+import functools
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..core.table import resolve_device
 from ..kernels.ops import attention
-from .layers import dense, dense_init, embedding_init, rmsnorm, swiglu
+from .layers import (cross_entropy_loss, dense, dense_init, embedding_init,
+                     rmsnorm, swiglu)
 
-__all__ = ["TransformerConfig", "Transformer", "weight_shapes"]
+__all__ = ["TransformerConfig", "Transformer", "weight_shapes", "loss_fn"]
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
-    """The reference's ``TransformerConfig`` fields that serving reads.
+    """The reference's ``TransformerConfig`` fields that training and
+    serving read.
 
-    Dropped, as the XLA program's or training's alone: ``remat``,
-    ``remat_policy``, ``act_pspec``, ``attn_chunk`` and
-    ``attn_mixed_precision``.  ``attn_backend`` is the port's
-    ``auto|torch|cuda`` (``kernels/ops.py``).  ``moe`` set raises in
-    :class:`Transformer`: the mixture-of-experts layers are not ported yet.
+    Dropped, as the XLA program's alone: ``act_pspec`` (a sharding
+    constraint), ``attn_chunk`` and ``attn_mixed_precision`` (the shape and
+    precision of ``_gqa_chunked``).  ``remat_policy`` is ``"nothing"`` (a
+    layer saves only its input) or ``"dots"`` (it also saves its matrix
+    products, as ``dots_with_no_batch_dims_saveable``).  ``attn_backend``
+    is the port's ``auto|torch|cuda`` (``kernels/ops.py``).  ``moe`` set
+    raises in :class:`Transformer`: the mixture-of-experts layers are not
+    ported yet.
     """
     name: str
     n_layers: int
@@ -57,6 +70,8 @@ class TransformerConfig:
     rope_theta: float = 10000.0
     tie_embeddings: bool = False          # minicpm
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = True
+    remat_policy: str = "nothing"         # "nothing" | "dots" — what remat saves
     attn_backend: str = "auto"            # "auto" | "torch" | "cuda"
 
     @property
@@ -91,8 +106,34 @@ def _rope(x: torch.Tensor, rope: Tuple[torch.Tensor, torch.Tensor]) -> torch.Ten
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
 
 
+# the matrix products a "dots" layer saves: the dense layers' (no batch
+# dimension; attention's batched products are recomputed)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: TransformerConfig, block, *args):
+    """``block(*args)`` under activation checkpointing (``_remat_wrap``):
+    ``"nothing"`` keeps only the layer's inputs and recomputes the rest in
+    the backward; ``"dots"`` is a selective checkpoint that also keeps the
+    dense products.  No randomness runs inside a layer, so no RNG state is
+    saved."""
+    if cfg.remat_policy not in ("nothing", "dots"):
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             _save_dots)
+    return checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False,
+                      **kw)
+
+
 class Transformer(nn.Module):
-    """A dense decoder's weights on one device, and its serving functions.
+    """A dense decoder's weights on one device, and its functions.
 
     ``weights`` (named and shaped as :func:`weight_shapes` says, as
     ``convert.transformer_params_from_numpy`` builds them) are taken as
@@ -100,7 +141,9 @@ class Transformer(nn.Module):
     ``torch.Generator`` seeded with ``seed``, with the reference's
     initialisers: dense weights normal times ``1 / sqrt(d_in)``, the
     embedding normal times 0.02, norm gains ones, biases zeros.  A full
-    model's weights are drawn on the card, never on the host.
+    model's weights are drawn on the card, never on the host.  The weights
+    do not require grad until a trainer marks them
+    (``Trainer.init_state``).
     """
 
     def __init__(self, cfg: TransformerConfig, *, device="cuda", seed: int = 0,
@@ -109,7 +152,7 @@ class Transformer(nn.Module):
         if cfg.moe is not None:
             raise NotImplementedError(
                 f"{cfg.name}: mixture-of-experts layers are not ported yet "
-                "(ROADMAP queue 1 item 11)")
+                "(ROADMAP queue 1 item 11, MoE)")
         self.cfg = cfg
         if weights is None:
             weights = _draw_weights(cfg, resolve_device(device), seed)
@@ -127,17 +170,24 @@ class Transformer(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
-    # ------------------------------------------------------------- serving
+    # ------------------------------------------------------------ training
 
-    @torch.no_grad()
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens ``(B, L)`` -> logits ``(B, L, V)``.  The reference also
-        returns MoE metrics, zeros for a dense model; they are dropped."""
+        """tokens ``(B, L)`` -> logits ``(B, L, V)``; differentiable, with
+        each layer under remat when ``cfg.remat`` and autograd records.
+        The reference also returns MoE metrics, zeros for a dense model;
+        :func:`loss_fn` makes them."""
         rope = self._rope_tables(0, tokens.shape[1])
         x = self.embed[tokens]
-        for i in range(self.cfg.n_layers):
-            x = self._layer(i, x, rope)
+        remat = self.cfg.remat and torch.is_grad_enabled()
+        for i, w in enumerate(self._layers()):
+            if remat:
+                x = _remat(self.cfg, self._layer, i, w, x, rope)
+            else:
+                x = self._layer(i, w, x, rope)
         return self._logits(x)
+
+    # ------------------------------------------------------------- serving
 
     def init_kv_cache(self, batch: int, max_len: int) -> Dict[str, Any]:
         """Zeros of the reference's layout, ``(n_layers, B, Hkv, max_len,
@@ -158,8 +208,8 @@ class Transformer(nn.Module):
         l = tokens.shape[1]
         rope = self._rope_tables(0, l)
         x = self.embed[tokens]
-        for i in range(self.cfg.n_layers):
-            x = self._layer(i, x, rope, cache, 0)
+        for i, w in enumerate(self._layers()):
+            x = self._layer(i, w, x, rope, cache, 0)
         cache["pos"] = l
         return self._logits(x[:, -1:])[:, 0], cache
 
@@ -172,8 +222,8 @@ class Transformer(nn.Module):
         pos = cache["pos"]
         rope = self._rope_tables(pos, 1)
         x = self.embed[tokens][:, None, :]
-        for i in range(self.cfg.n_layers):
-            x = self._layer(i, x, rope, cache, pos)
+        for i, w in enumerate(self._layers()):
+            x = self._layer(i, w, x, rope, cache, pos)
         cache["pos"] = pos + 1
         return self._logits(x)[:, 0], cache
 
@@ -183,20 +233,29 @@ class Transformer(nn.Module):
         positions = torch.arange(start, start + length, device=self.device)
         return _rope_tables(positions, self.cfg.head_dim, self.cfg.rope_theta)
 
-    def _layer(self, i: int, x: torch.Tensor, rope: Tuple[torch.Tensor, torch.Tensor],
+    def _layers(self) -> List[Dict[str, torch.Tensor]]:
+        """Each layer's weights by name, views of the stacked parameters.
+        One ``unbind`` a parameter gives every layer's view in one autograd
+        node, whose backward stacks the layers' gradients once; indexing a
+        layer at a time would give each layer's gradient the stacked size."""
+        names = [n for n in _LAYER_WEIGHTS if hasattr(self, n)]
+        return [dict(zip(names, ws))
+                for ws in zip(*(getattr(self, n).unbind(0) for n in names))]
+
+    def _layer(self, i: int, w: Dict[str, torch.Tensor], x: torch.Tensor,
+               rope: Tuple[torch.Tensor, torch.Tensor],
                cache: Optional[Dict[str, Any]] = None, pos: int = 0) -> torch.Tensor:
-        """One block; x ``(B, L, d)`` at positions ``[pos, pos + L)``, whose
-        rotary tables are ``rope``.  With a cache, the new k/v go into slots
-        ``[pos, pos + L)`` and attention reads slots ``[0, pos + L)``."""
+        """Block ``i`` with weights ``w``; x ``(B, L, d)`` at positions
+        ``[pos, pos + L)``, whose rotary tables are ``rope``.  With a cache,
+        the new k/v go into slots ``[pos, pos + L)`` and attention reads
+        slots ``[0, pos + L)``."""
         cfg = self.cfg
         b, l, _ = x.shape
         dh = cfg.head_dim
-        bq, bk, bv = ((self.bq[i], self.bk[i], self.bv[i]) if cfg.qkv_bias
-                      else (None, None, None))
-        h = rmsnorm(x, self.attn_norm[i])
-        q = dense(h, self.wq[i], bq).view(b, l, cfg.n_heads, dh)
-        k = dense(h, self.wk[i], bk).view(b, l, cfg.n_kv_heads, dh)
-        v = dense(h, self.wv[i], bv).view(b, l, cfg.n_kv_heads, dh)
+        h = rmsnorm(x, w["attn_norm"])
+        q = dense(h, w["wq"], w.get("bq")).view(b, l, cfg.n_heads, dh)
+        k = dense(h, w["wk"], w.get("bk")).view(b, l, cfg.n_kv_heads, dh)
+        v = dense(h, w["wv"], w.get("bv")).view(b, l, cfg.n_kv_heads, dh)
         q = _rope(q, rope).transpose(1, 2)
         k = _rope(k, rope).transpose(1, 2)
         v = v.transpose(1, 2)
@@ -211,15 +270,32 @@ class Transformer(nn.Module):
             k, v = ck[:, :, :end], cv[:, :, :end]
         o = attention(q, k, v, causal=True, window=cfg.sliding_window,
                       backend=cfg.attn_backend)
-        x = x + dense(o.transpose(1, 2).reshape(b, l, cfg.n_heads * dh), self.wo[i])
-        h = rmsnorm(x, self.mlp_norm[i])
-        return x + swiglu(h, self.w_gate[i], self.w_up[i], self.w_down[i])
+        x = x + dense(o.transpose(1, 2).reshape(b, l, cfg.n_heads * dh), w["wo"])
+        h = rmsnorm(x, w["mlp_norm"])
+        return x + swiglu(h, w["w_gate"], w["w_up"], w["w_down"])
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = rmsnorm(x, self.final_norm)
         if self.cfg.tie_embeddings:
             return x @ self.embed.T
         return dense(x, self.lm_head)
+
+
+def loss_fn(model: Transformer, tokens: torch.Tensor, labels: torch.Tensor
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean token cross-entropy of ``model(tokens)`` against ``labels``
+    (``transformer.py:313``), and the reference's metrics: the MoE
+    auxiliary loss and dropped tokens, zeros for a dense model (the
+    reference's ``aux_weight`` weighs the first in a MoE model's loss)."""
+    loss = cross_entropy_loss(model(tokens), labels)
+    return loss, {
+        "moe_aux_loss": torch.zeros((), dtype=torch.float32, device=loss.device),
+        "moe_dropped": torch.zeros((), dtype=torch.int32, device=loss.device)}
+
+
+# the stacked per-layer weights, in :func:`weight_shapes`'s names
+_LAYER_WEIGHTS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
+                  "w_up", "w_down", "bq", "bk", "bv")
 
 
 def weight_shapes(cfg: TransformerConfig) -> Dict[str, Tuple[int, ...]]:

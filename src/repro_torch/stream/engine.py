@@ -70,7 +70,7 @@ from ..core.sketch import (
 from ..core.sparse import ewise_union, from_coo
 from ..core.table import Table, resolve_device
 from ..data.faults import IngestHealth
-from ..data.pipeline import Prefetcher
+from ..data.pipeline import PinnedStager, Prefetcher
 from ..data.plq import read_plq_chunks
 from ..kernels.ops import windowed_histogram
 from ..obs import get_registry
@@ -703,23 +703,18 @@ def stream_plq(
     """Stream a plq capture's row groups through the engine.
 
     A background thread (``Prefetcher``) reads row groups ahead; each is
-    padded into one of two pinned host buffers and copied to the card with
-    ``non_blocking=True``, and its fold is queued behind the copy, so the
-    host reads and pads batch i+1 while the card folds batch i.  Before
-    refilling a buffer the host waits for the event recorded after the copy
-    that last read it.  ``win_full`` holds the window id of every capture
-    row (row groups arrive in file order).
+    padded into one of the ``PinnedStager``'s two pinned host buffers and
+    copied to the card with ``non_blocking=True``, and its fold is queued
+    behind the copy, so the host reads and pads batch i+1 while the card
+    folds batch i.  ``win_full`` holds the window id of every capture row
+    (row groups arrive in file order).
 
     ``time_phases=True`` waits after the transfer and after the fold, so
     that each phase's wall is its own (no overlap); the default overlapped
     mode records queueing walls and is the throughput measurement.
     """
     cap = engine.cfg.batch_capacity
-    device = engine.device
-    on_card = device.type == "cuda"
-    buffers = [torch.empty((3, cap), dtype=torch.int32, pin_memory=on_card)
-               for _ in range(2)]
-    copied: List[Optional[torch.cuda.Event]] = [None, None]
+    stager = PinnedStager(engine.device)
     timings: List[StreamBatchTimings] = []
     off = 0
     with Prefetcher(read_plq_chunks(path, list(columns)), depth=depth) as chunks:
@@ -730,22 +725,14 @@ def stream_plq(
                 raise ValueError(
                     f"row group {i} has {n} rows > batch_capacity {cap}; "
                     f"rewrite the capture with row_group_size <= {cap}")
-            slot = i % 2
-            if copied[slot] is not None:
-                copied[slot].synchronize()  # the copy that read it is done
-            host = buffers[slot].numpy()
+            host = stager.take({"rows": ((3, cap), np.int32)})["rows"]
             for row, col in enumerate((chunk["src"], chunk["dst"],
                                        win_full[off:off + n])):
                 np.copyto(host[row, :n], col, casting="unsafe")
             host[:, n:] = 0
             off += n
             t1 = time.perf_counter()
-            batch = buffers[slot].to(device, non_blocking=True)
-            if on_card:
-                copied[slot] = torch.cuda.Event()
-                copied[slot].record()
-                if time_phases:
-                    copied[slot].synchronize()
+            batch = stager.send(wait=time_phases)["rows"]
             t2 = time.perf_counter()
             engine.ingest_padded(batch[0], batch[1], batch[2], n)
             if time_phases:

@@ -31,10 +31,10 @@ in order, even when the fault layer delivers it twice or out of order
 (anonymization ids follow first-seen order, so order matters).
 
 On the card a fold does not synchronize with the host: each group is
-padded into one of two pinned host buffers and copied with
-``non_blocking=True`` (as :func:`~repro_torch.stream.engine.stream_plq`
-does), and a buffer is refilled only after the event of the copy that last
-read it.  The host waits for the card only to commit (``engine.block()``
+padded into one of a :class:`~repro_torch.data.pipeline.PinnedStager`'s two
+pinned host buffers and copied with ``non_blocking=True`` (as
+:func:`~repro_torch.stream.engine.stream_plq` does), and a buffer is
+refilled only after the event of the copy that last read it.  The host waits for the card only to commit (``engine.block()``
 and the copies of the state to the host) and, when a
 :class:`DegradePolicy` is set, to read the two live counts its pressure
 needs after each fold.
@@ -51,7 +51,6 @@ import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
 from ..core.sketch import SketchState, init_sketch
 from ..data.faults import (
@@ -62,7 +61,7 @@ from ..data.faults import (
     ResilientReader,
     RetryPolicy,
 )
-from ..data.pipeline import Prefetcher
+from ..data.pipeline import PinnedStager, Prefetcher
 from ..data.plq import plq_info, read_plq_group
 from ..obs import get_registry
 from ..train import checkpoint as ckpt
@@ -348,8 +347,6 @@ def _serve_one_life(
     """
     n_groups = len(info["groups"])
     cap = engine.cfg.batch_capacity
-    device = engine.device
-    on_card = device.type == "cuda"
     expected = {gi: g["stop"] - g["start"] for gi, g in enumerate(info["groups"])}
     order = (injector.arrival_order(watermark) if injector is not None
              else list(range(watermark, n_groups)))
@@ -358,9 +355,7 @@ def _serve_one_life(
         health=engine.health, expected_rows=expected,
         retry=retry, injector=injector, quarantine=quarantine,
     )
-    buffers = [torch.empty((3, cap), dtype=torch.int32, pin_memory=on_card)
-               for _ in range(2)]
-    copied: List[Optional[torch.cuda.Event]] = [None, None]
+    stager = PinnedStager(engine.device)
 
     next_seq = watermark
     committed = watermark
@@ -381,19 +376,13 @@ def _serve_one_life(
                 f"rewrite the capture with row_group_size <= {cap}")
         # the window column is cut by the group's own rows: groups may be
         # lost, duplicated or reordered, so no running offset
-        slot = n_folded % 2
-        if copied[slot] is not None:
-            copied[slot].synchronize()  # the copy that read it is done
-        host = buffers[slot].numpy()
+        host = stager.take({"rows": ((3, cap), np.int32)})["rows"]
         for row, col in enumerate((chunk[columns[0]], chunk[columns[1]],
                                    win_full[g["start"]:g["stop"]])):
             np.copyto(host[row, :n], col, casting="unsafe")
         host[:, n:] = 0
         t1 = time.perf_counter()
-        batch = buffers[slot].to(device, non_blocking=True)
-        if on_card:
-            copied[slot] = torch.cuda.Event()
-            copied[slot].record()
+        batch = stager.send()["rows"]
         t2 = time.perf_counter()
         engine.ingest_padded(batch[0], batch[1], batch[2], n)
         t3 = time.perf_counter()

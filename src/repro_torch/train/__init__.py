@@ -1,7 +1,6 @@
-"""repro_torch.train — the checkpoint API of ``repro.train`` (the atomic,
-manifest-driven protocol the streaming service commits through).  The
-optimizer and the training loop are not ported yet (ROADMAP.md queue 1
-item 11)."""
+"""repro_torch.train — the port of ``repro.train``: the optimizer, the
+training loop and the atomic, manifest-driven checkpoint protocol that the
+trainer and the streaming service commit through."""
 from .checkpoint import (  # noqa: F401
     complete_steps,
     gc_checkpoints,
@@ -14,8 +13,15 @@ from .checkpoint import (  # noqa: F401
     tree_flatten,
     tree_unflatten,
 )
+from .loop import Trainer, TrainState  # noqa: F401
+from .optimizer import AdamWConfig, adamw_init, adamw_update  # noqa: F401
 
 __all__ = [
+    "AdamWConfig",
+    "adamw_init",
+    "adamw_update",
+    "Trainer",
+    "TrainState",
     "complete_steps",
     "gc_checkpoints",
     "latest_step",

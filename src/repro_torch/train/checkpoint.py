@@ -23,6 +23,12 @@ and numpy arrays are leaves, and any other dataclass field is static
 the same keys as the reference's, so a step written by either package
 restores in the other: a restore checks only the leaf count and shapes,
 never ``treedef``.
+
+A ``torch.bfloat16`` leaf is written as its 16-bit pattern (a uint16 file)
+with ``"bfloat16"`` as its manifest dtype and restores bit-equal; the
+reference's bfloat16 leaves (numpy reads them as ``|V2``) restore too.  The
+reference itself restores neither: its dtype check fails on both files, so
+its ``restore_latest`` returns None for a checkpoint with a bfloat16 leaf.
 """
 from __future__ import annotations
 
@@ -123,11 +129,36 @@ def tree_unflatten(treedef: TreeDef, leaves) -> Any:
     return build(treedef)
 
 
-def _host(leaf) -> np.ndarray:
-    """A leaf as a host numpy array (a 0-d tensor keeps shape ``()``)."""
+def _host(leaf) -> Tuple[np.ndarray, str]:
+    """A leaf as a host numpy array (a 0-d tensor keeps shape ``()``) and
+    its manifest dtype.  numpy has no bfloat16: a ``torch.bfloat16`` leaf
+    is saved as its 16-bit pattern (uint16) under the dtype ``"bfloat16"``."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        if leaf.dtype == torch.bfloat16:
+            bits = leaf.detach().view(torch.int16).cpu().numpy().view(np.uint16)
+            return bits, "bfloat16"
+        arr = leaf.detach().cpu().numpy()
+    else:
+        arr = np.asarray(leaf)
+    return arr, str(arr.dtype)
+
+
+def _stored_as(arr: np.ndarray, dtype: str) -> bool:
+    """Whether a loaded leaf file holds the manifest's ``dtype``.  A
+    bfloat16 leaf loads as 2-byte words: uint16 as the port writes it, or
+    ``|V2`` as numpy reads the reference's (``ml_dtypes``) bfloat16."""
+    if dtype == "bfloat16":
+        return arr.dtype.itemsize == 2 and arr.dtype.kind in "uV"
+    return str(arr.dtype) == dtype
+
+
+def _leaf_from_file(arr: np.ndarray, dtype: str):
+    """A restored leaf: the numpy array, or for a bfloat16 leaf a bit-equal
+    ``torch.bfloat16`` tensor on the host."""
+    if dtype == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(
+            torch.bfloat16)
+    return arr
 
 
 # ---------------------------------------------------------------------------
@@ -159,7 +190,7 @@ def save_checkpoint(directory: str, step: int, tree, extra: Optional[Dict] = Non
     os.makedirs(tmp)
 
     leaves, treedef = tree_flatten(tree)
-    arrays = [_host(leaf) for leaf in leaves]
+    arrays, dtypes = zip(*map(_host, leaves)) if leaves else ((), ())
     manifest = {
         "step": step,
         "treedef": str(treedef),
@@ -167,14 +198,14 @@ def save_checkpoint(directory: str, step: int, tree, extra: Optional[Dict] = Non
         "leaves": [],
         "extra": extra or {},
     }
-    for i, arr in enumerate(arrays):
+    for i, (arr, dtype) in enumerate(zip(arrays, dtypes)):
         fname = f"leaf_{i:05d}.npy"
         with open(os.path.join(tmp, fname), "wb") as f:
             np.save(f, arr)
             f.flush()
             os.fsync(f.fileno())
         manifest["leaves"].append(
-            {"file": fname, "shape": list(arr.shape), "dtype": str(arr.dtype)}
+            {"file": fname, "shape": list(arr.shape), "dtype": dtype}
         )
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
@@ -231,7 +262,7 @@ def step_is_complete(directory: str, step: int) -> bool:
         for spec in manifest["leaves"]:
             arr = np.load(os.path.join(path, spec["file"]))
             if (list(arr.shape) != list(spec["shape"])
-                    or str(arr.dtype) != spec["dtype"]):
+                    or not _stored_as(arr, spec["dtype"])):
                 return False
     except Exception:  # any unreadable byte makes the step a non-candidate
         return False
@@ -245,8 +276,9 @@ def complete_steps(directory: str) -> list:
 
 def restore_checkpoint(directory: str, step: int, target_tree):
     """Restore into the *structure* of ``target_tree`` (leaf count and
-    shapes checked).  The leaves come back as host numpy arrays; the
-    template's leaves only give shapes (they may be ``meta`` tensors)."""
+    shapes checked).  The leaves come back as host numpy arrays, a bfloat16
+    leaf as a bit-equal host ``torch.bfloat16`` tensor; the template's
+    leaves only give shapes (they may be ``meta`` tensors)."""
     path = _step_dir(directory, step)
     manifest = read_manifest(directory, step)
     leaves, treedef = tree_flatten(target_tree)
@@ -260,7 +292,7 @@ def restore_checkpoint(directory: str, step: int, target_tree):
         want = tuple(leaf.shape) if hasattr(leaf, "shape") else np.shape(leaf)
         if tuple(arr.shape) != want:
             raise ValueError(f"leaf {i}: checkpoint {arr.shape} vs target {want}")
-        restored.append(arr)
+        restored.append(_leaf_from_file(arr, spec["dtype"]))
     return tree_unflatten(treedef, restored), manifest["extra"]
 
 

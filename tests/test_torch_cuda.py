@@ -1,6 +1,7 @@
 """The CUDA kernels (histogram, segment max, Count-Min, segment sum,
-attention) against their plain versions, on the card, and the transformer's
-serving path through the attention kernel.
+attention) against their plain versions, on the card, and the paths that
+run them: the transformer's serving and training (the attention kernel as
+an ``autograd.Function``), the challenge, the stream and the service.
 
 These tests need an NVIDIA card and ``nvcc``: they carry the ``cuda``
 marker and skip without a card.  Run them on a machine with one:
@@ -17,11 +18,14 @@ import torch
 
 from repro_torch.convert import tensor_leaves
 from repro_torch.kernels import flash_attention as fa_kernel
-from repro_torch.kernels import histogram as hist_kernel
 from repro_torch.kernels import ops
 from repro_torch.kernels import segment_matmul as segsum_kernel
 from repro_torch.kernels import segreduce as segmax_kernel
 from repro_torch.kernels import sketch as sketch_kernel
+from repro_torch.kernels.launches import wrapper
+
+# the kernel module (the package's own "histogram" is ops.histogram)
+hist_kernel = wrapper("histogram")
 
 pytestmark = pytest.mark.cuda
 
@@ -852,3 +856,122 @@ def test_service_crash_and_replay_on_the_card(dev, tmp_path, crash_at):
     oracle = StreamEngine(cfg)
     stream_plq(oracle, path, win)
     _assert_engines_equal(report.engine, oracle)
+
+
+# --- LM training ---------------------------------------------------------------
+
+@pytest.mark.parametrize("hq,hkv,lq,lkv,d,window", [
+    (32, 8, 512, 512, 128, None),   # granite-8b's GQA, prefill
+    (32, 8, 5, 2048, 128, None),    # a decode chunk against a long cache
+    (36, 36, 256, 256, 64, 96),     # minicpm-2b's heads, a window
+    (8, 2, 64, 40, 64, None),       # Lq > Lkv: rows that see no key
+], ids=["granite-prefill", "granite-chunk", "minicpm-window", "empty-rows"])
+def test_train_ref_attention_forward_unchanged(dev, hq, hkv, lq, lkv, d, window):
+    """The differentiable plain attention gives, on the card, the values of
+    the in-place ``repeat_interleave`` formulation it replaced, bit for bit
+    in bfloat16: the yardstick of the serving checks did not move."""
+    from _ref_attention_before import ref_attention_before
+    from repro_torch.kernels.ref import ref_attention
+
+    g = torch.Generator(device=dev).manual_seed(hq + lq)
+    q, k, v = (torch.randn(2, h, n, d, generator=g, device=dev, dtype=torch.bfloat16)
+               for h, n in ((hq, lq), (hkv, lkv), (hkv, lkv)))
+    with torch.no_grad():
+        got = ref_attention(q, k, v, window=window)
+        want = ref_attention_before(q, k, v, window=window)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("hq,hkv,d,window", [(36, 36, 64, None), (32, 8, 128, None),
+                                             (8, 2, 64, 96)],
+                         ids=["minicpm", "granite-gqa", "gqa-window96"])
+def test_train_attention_function_matches_plain_autograd(dev, hq, hkv, d, window):
+    """``ops.attention`` under autograd runs the kernel as the forward of
+    ``FlashAttention`` (one launch): each output row within 2^-7 relative
+    L2 of the plain version's, and dq, dk, dv bit-equal to plain autograd's
+    for the same upstream gradient (the same plain backward on the same
+    inputs)."""
+    from repro_torch.kernels.ref import ref_attention
+
+    g = torch.Generator(device=dev).manual_seed(hq + d)
+    q, k, v = (torch.randn(2, h, 320, d, generator=g, device=dev,
+                           dtype=torch.bfloat16).requires_grad_()
+               for h in (hq, hkv, hkv))
+    up = torch.randn(2, hq, 320, d, generator=g, device=dev, dtype=torch.bfloat16)
+    before = fa_kernel.LAUNCHES
+    out = ops.attention(q, k, v, window=window)
+    assert fa_kernel.LAUNCHES == before + 1
+    assert "FlashAttention" in type(out.grad_fn).__name__
+    plain = ref_attention(q, k, v, window=window)
+    rows = (out.float() - plain.float()).norm(dim=-1) / (plain.float().norm(dim=-1)
+                                                          + 1e-6)
+    assert rows.max().item() <= 2 ** -7
+    got = torch.autograd.grad(out, (q, k, v), up)
+    want = torch.autograd.grad(plain, (q, k, v), up)
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    with torch.no_grad():  # serving: the kernel alone, no autograd node
+        assert ops.attention(q, k, v, window=window).grad_fn is None
+
+
+def _train_smoke(dev, ckpt_dir=None, seed=0):
+    """minicpm's smoke config in bfloat16 with heads of 64 and remat, on the
+    card, through the attention kernel."""
+    import dataclasses
+
+    from repro_torch.configs import minicpm_2b
+    from repro_torch.convert import transformer_param_tree
+    from repro_torch.models.transformer import Transformer, loss_fn
+    from repro_torch.train import AdamWConfig, Trainer
+
+    cfg = dataclasses.replace(minicpm_2b.smoke_config(), dtype=torch.bfloat16,
+                              d_head=64, remat=True, attn_backend="cuda")
+    model = Transformer(cfg, device=dev, seed=seed)
+    trainer = Trainer(lambda p, b: loss_fn(model, b["tokens"], b["labels"]),
+                      AdamWConfig(warmup_steps=2, total_steps=10, schedule="wsd"),
+                      ckpt_dir=ckpt_dir, ckpt_every=3)
+    return cfg, trainer, trainer.init_state(transformer_param_tree(model))
+
+
+def test_train_steps_without_a_host_sync(dev):
+    """``Trainer.run`` for 7 steps, logging every third: each step that does
+    not log (1, 2, 4, 5) runs under ``set_sync_debug_mode("error")``, its
+    batch copy, forward, remat, backward and AdamW included; the kernel
+    runs twice a layer a step (remat)."""
+    from repro_torch.data.pipeline import lm_batches
+
+    cfg, trainer, state = _train_smoke(dev)
+    logged = []
+
+    def feed():
+        for i, batch in enumerate(lm_batches(2, 64, cfg.vocab)):
+            torch.cuda.set_sync_debug_mode("error" if i % 3 else "default")
+            yield batch
+
+    before = fa_kernel.LAUNCHES
+    try:
+        trainer.run(state, feed(), 7, log_every=3,
+                    log_fn=lambda step, hist: logged.append(hist))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert fa_kernel.LAUNCHES - before == 2 * cfg.n_layers * 7
+    assert [h["step"] for h in logged] == [0, 3, 6]
+    assert all(torch.isfinite(torch.tensor(h["loss"])) for h in logged)
+
+
+def test_train_checkpoint_round_trip_on_the_card(dev, tmp_path):
+    """A trainer's bfloat16 weights and float32 moments committed from the
+    card restore bit-equal into a new trainer's tensors on the card."""
+    from repro_torch.data.pipeline import lm_batches
+    from repro_torch.train import tree_flatten
+
+    cfg, trainer, state = _train_smoke(dev, str(tmp_path))
+    state, _ = trainer.run(state, lm_batches(2, 64, cfg.vocab), 3, log_every=0)
+    saved = [x.detach().clone() for x in tree_flatten(state.tree())[0]]
+    _, trainer2, fresh = _train_smoke(dev, str(tmp_path), seed=1)
+    restored, step = trainer2.maybe_resume(fresh)
+    assert step == 3
+    for a, b in zip(tree_flatten(restored.tree())[0], saved):
+        assert a.is_cuda and a.dtype == b.dtype
+        assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+                           b.view(torch.int16) if b.dtype == torch.bfloat16 else b)

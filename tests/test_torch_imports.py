@@ -35,7 +35,8 @@ def test_scan_covers_the_port():
             "segment_matmul.py", "transformer.py", "layers.py",
             "granite_8b.py", "engine.py", "state.py", "metrics.py",
             "scenarios.py", "faults.py", "checkpoint.py", "recovery.py",
-            "serve.py"} <= names
+            "serve.py", "optimizer.py", "loop.py", "elastic.py",
+            "train.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -21,11 +21,14 @@ from repro.kernels import ref as jax_ref
 from repro.kernels.histogram import histogram_pallas
 from repro.kernels.segreduce import segment_max_pallas
 from repro.kernels.sketch import cms_update_pallas, hll_update_pallas
-from repro_torch.kernels import histogram as hist_kernel
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 from repro_torch.kernels import segreduce as segmax_kernel
 from repro_torch.kernels import sketch as sketch_kernel
+from repro_torch.kernels.launches import wrapper
+
+# the kernel module (the package's own "histogram" is ops.histogram)
+hist_kernel = wrapper("histogram")
 
 N, BINS = 300, 50
 
@@ -484,3 +487,22 @@ def test_cms_clustered_mirror_matches_plain_and_pallas(cluster, width, dtype, ca
     jc, jcols, jp = jnp.asarray(counts), jnp.asarray(cols), jnp.asarray(props)
     _assert_same(got, jax_ref.ref_cms_update(jc, jcols, jp) if case == "no proposals"
                  else cms_update_pallas(jc, jcols, jp, interpret=True))
+
+
+def test_launch_counters_by_kernel_name():
+    """``kernels.launches`` reads and resets every wrapper's counter by
+    kernel name, the histogram module included (the package attribute of
+    that name is ``ops.histogram``)."""
+    import repro_torch.kernels as port_kernels
+    from repro_torch.kernels import launches
+
+    assert hist_kernel.__name__ == "repro_torch.kernels.histogram"
+    assert port_kernels.histogram is ops.histogram
+    hist_kernel.LAUNCHES, sketch_kernel.HLL_LAUNCHES = 3, 5
+    assert launches.read_launches()["histogram"] == 3
+    assert launches.read_launches()["hll_update"] == 5
+    launches.reset_launches()
+    assert set(launches.read_launches()) == {
+        "histogram", "segment_max", "cms_update", "hll_update",
+        "flash_attention", "segment_matmul"}
+    assert not any(launches.read_launches().values())

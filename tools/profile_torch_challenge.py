@@ -46,6 +46,16 @@ steps from position 2,048).  Their records add the device time of the
 attention kernel (its prefill path in ``lm_prefill``, its split-kv decode
 path and combine in ``lm_decode``), of the matrix products and of the rest.
 
+LM training, ``lm_train``: one ``Trainer`` step of minicpm-2b at full size
+(40 layers, bf16, remat, weights drawn on the card) on 4 x 2,048 tokens of
+``lm_batches``, AdamW as the reference launcher sets it.  Its record adds
+the device time of the attention kernel's forward (twice a layer: remat),
+of the plain attention's backward (``FlashAttention.backward``: the plain
+version recomputed and differentiated), of the optimizer
+(``adamw_update``), of the other matrix products and of the rest; a kernel
+counts under the backward or the optimizer when the profiler's CPU range
+around those calls (added here, not in the port) launched it.
+
     python3 tools/profile_torch_challenge.py --scale 24
     python3 tools/profile_torch_challenge.py --phases analyze analyze_naive analyze_grid fused_replay
     python3 tools/profile_torch_challenge.py --scale 20 --phases bfs components pagerank triangles
@@ -53,6 +63,7 @@ path and combine in ``lm_decode``), of the matrix products and of the rest.
     python3 tools/profile_torch_challenge.py --phases hll_fold hll_fold_library
     python3 tools/profile_torch_challenge.py --phases hist_activity hist_gated cms_fold
     python3 tools/profile_torch_challenge.py --phases lm_prefill lm_decode --layers 36
+    python3 tools/profile_torch_challenge.py --phases lm_train --reps 3
 """
 from __future__ import annotations
 
@@ -107,7 +118,7 @@ def profile_phase(name, fn, reps, top, calls=None):
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-           and "spin_kernel" not in e.name]
+           and "spin_kernel" not in e.name and e.name not in RANGES]
     by_name = {}
     for e in dev:
         ms, cnt = by_name.get(e.name, (0.0, 0))
@@ -119,6 +130,11 @@ def profile_phase(name, fn, reps, top, calls=None):
     for k, (ms, _) in by_name.items():
         fam = _family(k)
         families[fam] = families.get(fam, 0.0) + ms
+    ranged = _ranged_kernel_ms(prof.events())
+    for fam, ms in ranged.items():  # move them out of their name's family
+        for k, k_ms in ms.items():
+            families[_family(k)] -= k_ms
+            families[fam] = families.get(fam, 0.0) + k_ms
     rec = {
         "phase": name,
         "wall_ms_median": statistics.median(walls),
@@ -136,6 +152,31 @@ def profile_phase(name, fn, reps, top, calls=None):
                                    for k, (_, cnt) in by_name.items()}
         rec["device_events_per_call"] = len(dev) / calls
     return rec
+
+
+# profiler ranges whose kernels form a family of their own (lm_train); the
+# profiler also shows each range on the device's timeline, under its name,
+# which is no device work
+RANGES = {"plain_attention_backward": "plain attention backward",
+          "adamw_update": "optimizer"}
+
+
+def _ranged_kernel_ms(events) -> dict:
+    """Device ms of the kernels that a CPU op inside one of ``RANGES``
+    launched, by family and kernel name."""
+    out = {}
+    for e in events:
+        if not getattr(e, "kernels", None):
+            continue
+        parent = e
+        while parent is not None and parent.name not in RANGES:
+            parent = parent.cpu_parent
+        if parent is None:
+            continue
+        fam = out.setdefault(RANGES[parent.name], {})
+        for k in e.kernels:
+            fam[k.name] = fam.get(k.name, 0.0) + k.duration / 1e3
+    return out
 
 
 def _family(kernel_name: str) -> str:
@@ -162,9 +203,11 @@ KERNEL_PHASES = tuple(f"{k}{s}" for k in ("segmax_vxm", "hll_fold", "cms_fold",
                                            "segment_reduce", "segment_reduce_lg")
                       for s in ("", "_library"))
 LM_PHASES = ("lm_prefill", "lm_decode")
-PHASES = TABLE_PHASES + KERNEL_PHASES + LM_PHASES
+TRAIN_PHASES = ("lm_train",)
+PHASES = TABLE_PHASES + KERNEL_PHASES + LM_PHASES + TRAIN_PHASES
 CALLS = 20  # back-to-back calls per kernel phase
 LM_BATCH, LM_PROMPT, LM_SLOTS, LM_STEPS = 4, 2048, 2080, 8
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048
 STREAM_BATCH, STREAM_BATCHES = 1 << 18, 8  # stream_ingest: row groups a call
 
 
@@ -364,6 +407,47 @@ def lm_phases(args, dev):
             "lm_decode": decode}
 
 
+def train_phases(dev):
+    """minicpm-2b training at full size: each call is one ``Trainer`` step
+    (``run`` for one step, no log), the state advancing from call to call;
+    the plain attention's backward and ``adamw_update`` run inside profiler
+    ranges named as in ``RANGES``."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import minicpm_2b
+    from repro_torch.convert import transformer_param_tree
+    from repro_torch.data.pipeline import lm_batches
+    from repro_torch.kernels.flash_attention import FlashAttention
+    from repro_torch.models.transformer import Transformer, loss_fn
+    from repro_torch.train import AdamWConfig, Trainer
+    from repro_torch.train import loop
+
+    backward, update = FlashAttention.backward, loop.adamw_update
+
+    def ranged_backward(ctx, g):
+        with torch.profiler.record_function("plain_attention_backward"):
+            return backward(ctx, g)
+
+    def ranged_update(*args):
+        with torch.profiler.record_function("adamw_update"):
+            return update(*args)
+
+    FlashAttention.backward = staticmethod(ranged_backward)
+    loop.adamw_update = ranged_update
+    cfg = dataclasses.replace(minicpm_2b.full_config(), attn_backend="cuda")
+    model = Transformer(cfg, device=dev, seed=0)
+    trainer = Trainer(lambda p, b: loss_fn(model, b["tokens"], b["labels"]),
+                      AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=100,
+                                  schedule="wsd"))
+    state = trainer.init_state(transformer_param_tree(model))
+    batches = lm_batches(TRAIN_BATCH, TRAIN_SEQ, cfg.vocab, seed=0)
+    print(json.dumps({"model": cfg.name, "layers": cfg.n_layers,
+                      "params": cfg.n_params, "batch": TRAIN_BATCH,
+                      "seq": TRAIN_SEQ, "remat": cfg.remat_policy}))
+    return {"lm_train": lambda: trainer.run(state, batches, 1, log_every=0)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=24)
@@ -387,6 +471,8 @@ def main(argv=None) -> int:
         phases.update(table_phases(args, dev))
     if set(LM_PHASES) & set(args.phases):
         phases.update(lm_phases(args, dev))
+    if set(TRAIN_PHASES) & set(args.phases):
+        phases.update(train_phases(dev))
     for name in args.phases:
         calls = CALLS if name in KERNEL_PHASES else None
         print(json.dumps(profile_phase(name, phases[name], args.reps, args.top,
