@@ -185,11 +185,37 @@ Phases (any failure exits non-zero):
    --ckpt-dir D`` twice, through its ``main``: exit 0, 40 attention
    launches, and the second resumes at step 20.
 
+12. GNN training on the card: (a) the segment sum and the feature-wise
+   segment max under autograd (``ops.segment_reduce``: the ``SegmentSum``
+   and ``SegmentMax`` Functions, kernel forwards, plain backwards) against
+   plain autograd at the molecule, minibatch_lg and ogb_products widths
+   (sums within the order bound, integer-valued ones at ogb_products bit-
+   equal; maxima bit-equal, ties planted; the rows' gradients bit-equal
+   for the same upstream gradient), forward + backward timed by events
+   beside plain autograd's and ``index_add``'s or ``scatter_reduce``'s;
+   (b) SchNet, PNA, EGNN and GraphSAGE at ``make_cfg``'s published widths
+   with the reference's AdamW, on molecule (128 graphs of 30 nodes and 64
+   edges), full_graph_sm (cora's 2,708 nodes and 10,556 edges, padded) and
+   minibatch_lg (the port's sampler over a base graph of reddit's 232,965
+   nodes, 114,615,892 edges and 602 features, drawn from ``SEED``, 1,024
+   seeds, fanouts 15 and 10), graphs drawn on the card: 8 steps through the
+   kernels (step walls on the device's timeline, edges/s, peak memory,
+   launches a step against the count the code implies, host syncs of
+   steps 2-8 counted with ``set_sync_debug_mode("warn")``), 3 from the same
+   weights and graph through the plain path (outputs and losses within
+   ``GNN_OUT_RTOL``/``GNN_LOSS_RTOL``) and 3 with a planted fault (each real
+   edge's receiver moved to the next node: beyond the limit at every
+   step); (c) graphsage-reddit at ogb_products (61,859,140 live edges), 3
+   steps through the kernel's partitioned launch, in a child process whose
+   allocator grows its segments (``OGB_ALLOC_CONF``): peak memory, step
+   walls, edges/s; (d) each GNN config's ``smoke()`` on the card.
+
 Then it prints one JSON line of kernel records, whose launch counts are
 those of the main path's runs (phases 3, 4 and 5, without the algorithms
 timed on their own; the segment-sum entry point's run of phase 6; phase
-7's counted run; phase 8's, 9's and 10's runs, and phase 11's (b) kernel
-run, (c) runs and (d) CLI runs, each under its own name),
+7's counted run; phase 8's, 9's and 10's runs, phase 11's (b) kernel
+run, (c) runs and (d) CLI runs, and phase 12's kernel runs of (b), (c)
+and (d), each under its own name),
 the card line
 again, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -2216,6 +2242,25 @@ def _gnn_inputs(g, dev, regime, features=True):
     return feats, send, recv, segs
 
 
+def _within_order_bound(name, got, want, x, recv, segs):
+    """|kernel - plain| of a segment sum of the rows ``x`` (ids >= 0) within
+    the reordering tolerance: a sum of k terms in any order is within (k-1)
+    2^-24 sum|x| of any other order, so |kernel - plain| <= 2 k_max 2^-24
+    sum|x| a segment (ROADMAP queue 3 item 4), in float64.  Returns (the
+    largest |diff|, k_max)."""
+    import torch
+
+    spill = torch.where(recv < segs, recv, segs).long()
+    k_max = torch.bincount(spill, minlength=segs + 1)[:segs].max().item()
+    abs_sum = torch.zeros(segs + 1, x.shape[1], dtype=torch.float64, device=x.device
+                          ).index_add_(0, spill, x.detach().abs().double())[:segs]
+    err = (got.double() - want.double()).abs()
+    if not bool((err <= 2 * k_max * 2.0 ** -24 * abs_sum).all()):
+        raise AssertionError(f"{name}: max |diff| {err.max().item()} beyond the "
+                             "order bound")
+    return err.max().item(), k_max
+
+
 def check_segment_sum(dev):
     """Phase 6: the segment-sum kernel against its plain version at the GNN
     regimes.  Returns (max_abs_err, timed shape records)."""
@@ -2243,25 +2288,17 @@ def check_segment_sum(dev):
         msgs = ints
         if regime not in INTEGER_ONLY:
             del ints
-            # random messages, gathered as a GNN layer gathers them;
-            # tolerance: a sum of k terms in any order is within
-            # (k-1) * 2^-24 * sum|x| of any other order
+            # random messages, gathered as a GNN layer gathers them, within
+            # the order bound
             feats, send, recv, segs = _gnn_inputs(g, dev, regime)
             msgs = feats[send]
-            got = segment_reduce(msgs, recv, segs, backend="cuda").double()
-            want = segment_reduce(msgs, recv, segs, backend="torch").double()
-            spill = torch.where(recv < segs, recv, segs).long()  # ids are >= 0
-            k_max = torch.bincount(spill, minlength=segs + 1)[:segs].max().item()
-            abs_sum = torch.zeros(segs + 1, d, dtype=torch.float64, device=dev
-                                  ).index_add_(0, spill, msgs.abs().double())[:segs]
-            err = (got - want).abs()
-            if not bool((err <= 2 * k_max * 2.0 ** -24 * abs_sum).all()):
-                raise AssertionError(f"({regime}) random floats: max |diff| "
-                                     f"{err.max().item()} beyond tolerance")
-            max_err = max(max_err, err.max().item())
+            err, k_max = _within_order_bound(
+                f"({regime}) random floats",
+                segment_reduce(msgs, recv, segs, backend="cuda"),
+                segment_reduce(msgs, recv, segs, backend="torch"), msgs, recv, segs)
+            max_err = max(max_err, err)
             log(f"  ({regime}) random float messages: max |diff| "
-                f"{err.max().item():.3g} (tolerance 2 * {k_max} * 2^-24 * sum|x|)")
-            del got, want, abs_sum, err, spill
+                f"{err:.3g} (tolerance 2 * {k_max} * 2^-24 * sum|x|)")
         kern = lambda: segment_reduce(msgs, recv, segs, backend="cuda")
         plain = lambda: segment_reduce(msgs, recv, segs, backend="torch")
         kind = "random" if regime not in INTEGER_ONLY else "integer-valued"
@@ -2815,6 +2852,569 @@ def _train_cli(workdir: str):
     return out, total
 
 
+# GNN training (phase 12): the four GNNs at the published widths of
+# configs/{schnet,pna,egnn,graphsage_reddit}.make_cfg, the reference's AdamW
+# (common_gnn.GNN_OPT), on three shapes of configs/common_gnn.GNN_SHAPES,
+# then graphsage-reddit at ogb_products
+GNN_CONFIGS = ("schnet", "pna", "egnn", "graphsage_reddit")
+GNN_TRAIN_SHAPES = ("molecule", "full_graph_sm", "minibatch_lg")
+GNN_STEPS, GNN_CHECK_STEPS, GNN_OGB_STEPS = 8, 3, 3
+GNN_GRAD_CHUNK = 1 << 24  # rows a plain autograd check takes at a time
+# molecule: 128 graphs of 30 nodes and 64 edges; full_graph_sm's live part
+MOLECULE_NODES, MOLECULE_EDGES = 30, 64
+CORA_NODES, CORA_EDGES = 2708, 10556
+# minibatch_lg's base graph: reddit as GraphSAGE's loaders ship it (232,965
+# nodes, 114,615,892 edges, 602 features, 41 classes), drawn from SEED: in-
+# edges in CSR order (exponential degrees), uniform senders; 1,024 seeds,
+# fanouts 15 and 10 (GNN_SHAPES["minibatch_lg"]["raw"])
+REDDIT_NODES, REDDIT_EDGES, REDDIT_FEATS = 232_965, 114_615_892, 602
+MINIBATCH_SEEDS, MINIBATCH_FANOUTS = 1024, (15, 10)
+# The kernel path's outputs (relative L2 over the output tensor) and losses
+# (relative) at each of the first GNN_CHECK_STEPS steps against the plain
+# path's, from the same weights and graph.  The kernels sum each segment in
+# another order than index_add_ (float32, within 2 k 2^-24 sum|x| a sum of
+# k terms, about 1e-7 relative); PNA's std aggregator amplifies that (its
+# backward scales the difference 2 (m - mean) by up to 158), and the
+# warm-up's lr (1e-5 at the first step) moves a weight by up to 2 lr where
+# rounding flips a gradient's sign.  On an H100 the two paths stay within
+# 1.6e-6 (outputs) and 2.8e-6 (losses) of each other; a planted fault, each
+# real edge's receiver moved to the next node, moves the outputs by 7.3e-4
+# (SchNet at minibatch_lg) and the losses by 2.8e-4 (GraphSAGE at
+# minibatch_lg: the cross-entropy of 41 random labels) at the least
+# (PERF.md, section 6).  The limit lies between the two; the fault must
+# exceed it on the outputs and on the losses at every step, but for
+# GraphSAGE at molecule, whose loss is 0 at any weights (one class).
+GNN_OUT_RTOL = GNN_LOSS_RTOL = 1e-4
+
+
+def _segment_function_inputs(g, dev, op, regime):
+    """Phase 12 (a)'s rows for ``op`` at ``regime``: receivers as phase 6
+    draws them; sums: random floats, or integer-valued where the float64
+    copies of the order check would not fit (ogb_products); max: values on
+    a grid of 1/4 so that maxima tie, PNA's 75 features (8 at
+    ogb_products, where no arch takes a max)."""
+    import torch
+
+    n, _, d, segs, _ = GNN_REGIMES[regime]
+    _, _, recv, _ = _gnn_inputs(g, dev, regime, features=False)
+    if op == "max":
+        d = 8 if regime == "ogb_products" else 75
+        x = torch.randn(n, d, generator=g, device=dev).mul_(4).round_().div_(4)
+    elif regime in INTEGER_ONLY:
+        x = torch.randint(-8, 9, (n, d), generator=g, device=dev, dtype=torch.float32)
+    else:
+        x = torch.randn(n, d, generator=g, device=dev)
+    return x.requires_grad_(), recv, segs
+
+
+def check_segment_functions(dev) -> dict:
+    """Phase 12 (a): ``SegmentSum`` and ``SegmentMax`` (``ops.segment_reduce``
+    under autograd on the card) against plain autograd at the molecule,
+    minibatch_lg and ogb_products widths: sums within the order bound
+    (integer-valued ones bit-equal), maxima bit-equal, the rows' gradients
+    bit-equal for the same upstream gradient, planted ties included;
+    forward + backward timed by events beside plain autograd and one
+    library call's autograd (``index_add`` or ``scatter_reduce`` onto a
+    spill row).  Returns the records by case."""
+    import torch
+    from repro_torch.kernels.ops import segment_reduce
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    out = {}
+    for op in ("sum", "max"):
+        for regime in ("molecule", "minibatch_lg", "ogb_products"):
+            torch.cuda.empty_cache()
+            x, recv, segs = _segment_function_inputs(g, dev, op, regime)
+            n, d = x.shape
+            name = f"{op} {regime} ({n}, {d}) -> {segs}"
+            want_fn = "SegmentSumBackward" if op == "sum" else "SegmentMaxBackward"
+            up = torch.randn(segs, d, generator=g, device=dev)
+            got = segment_reduce(x, recv, segs, op=op, backend="cuda")
+            if type(got.grad_fn).__name__ != want_fn:
+                raise AssertionError(f"{name}: grad_fn {got.grad_fn}, not {want_fn}")
+            got_grad = torch.autograd.grad(got, x, up)[0]
+            got = got.detach()
+            with torch.no_grad():
+                want = segment_reduce(x, recv, segs, op=op, backend="torch")
+            if op == "max" or regime in INTEGER_ONLY:
+                same(f"{name} forward", got, want)
+                err = 0.0
+            else:
+                err, _ = _within_order_bound(name, got, want, x, recv, segs)
+            del want
+            # a sum's plain autograd over chunks of rows (a row's gradient
+            # depends on its own id and the upstream gradient alone): it
+            # keeps a copy of its rows, which beside x and the kernel's
+            # gradient would not fit at ogb_products.  A max's row gradient
+            # depends on the ties in its whole segment: one chunk
+            chunk = GNN_GRAD_CHUNK if op == "sum" else n
+            for r0 in range(0, n, chunk):
+                rows = x[r0:r0 + chunk].detach().requires_grad_()
+                plain = segment_reduce(rows, recv[r0:r0 + chunk], segs, op=op,
+                                       backend="torch")
+                if not torch.equal(got_grad[r0:r0 + chunk],
+                                   torch.autograd.grad(plain, rows, up)[0]):
+                    raise AssertionError(f"{name}: rows' gradient != plain autograd's "
+                                         f"(rows {r0} on)")
+                del rows, plain
+            log(f"  {name} rows' gradient: bit-equal")
+            rec = {"case": name, "forward_max_abs_err": err,
+                   "ties": None}
+            if op == "max":  # (segment, feature) pairs whose max ties
+                flat = torch.where(recv < segs, recv, segs).long()[:, None] * d \
+                    + torch.arange(d, device=dev)
+                hit = (x.detach() == torch.nn.functional.pad(
+                    got, (0, 0, 0, 1), value=float("nan")).reshape(-1)[flat]).reshape(-1)
+                counts = torch.bincount(flat.reshape(-1)[hit], minlength=(segs + 1) * d)
+                rec["ties"] = int((counts > 1).sum().item())
+                del flat, hit, counts
+            del got, got_grad
+            torch.cuda.empty_cache()
+            spill = torch.where(recv < segs, recv, segs).long()
+            if op == "sum":
+                library = lambda: torch.zeros(segs + 1, d, device=dev).index_add(  # noqa: E731
+                    0, spill, x)[:segs]
+            else:
+                idx = spill[:, None].expand(-1, d)
+                library = lambda: torch.full(  # noqa: E731
+                    (segs + 1, d), float("-inf"), device=dev).scatter_reduce(
+                    0, idx, x, reduce="amax")[:segs]
+            fwd_bwd = lambda f: lambda: torch.autograd.grad(f(), x, up)  # noqa: E731
+            kern = fwd_bwd(lambda: segment_reduce(x, recv, segs, op=op, backend="cuda"))
+            nbytes = (2 * 4 * n * d + 2 * 4 * n + 2 * 4 * segs * d
+                      + (4 * n * d + 4 * segs * d if op == "max" else 0))
+            rec.update({
+                "fwd_bwd_ms": time_ms(kern),
+                "fwd_bwd_device_ms": device_time_ms(kern),
+                "plain_fwd_bwd_ms": time_ms(fwd_bwd(
+                    lambda: segment_reduce(x, recv, segs, op=op, backend="torch"))),
+                "library_fwd_bwd_ms": time_ms(fwd_bwd(library)),
+                "fwd_bwd_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            })
+            out[f"{op}_{regime}"] = rec
+            log("[gnn (a)] " + json.dumps(rec))
+            del x, recv, up, spill, library, kern
+            torch.cuda.empty_cache()
+    return out
+
+
+def _gnn_modules(config):
+    import importlib
+
+    return importlib.import_module(f"repro_torch.configs.{config}")
+
+
+def gnn_launches_per_step(cfg, pooled: bool) -> dict:
+    """The kernel launches of one forward (and so of one training step: the
+    backwards launch no kernel) as ``models/gnn.py`` implies them: a
+    ``segment_sum`` one segment-sum launch, a ``segment_mean`` two (the sum
+    and the count), a ``segment_max`` or ``segment_min`` one segment-max
+    launch; ``pooled`` where the graph has ``graph_ids``."""
+    from repro_torch.models import gnn as G
+
+    sums = maxes = 0
+    if isinstance(cfg, G.GraphSAGEConfig):  # every config here aggregates by mean
+        sums = 2 * cfg.n_layers
+    elif isinstance(cfg, G.PNAConfig):  # degree; per layer the mean, then each
+        per = 2 + sum({"std": 2}.get(a, 0) for a in cfg.aggregators)
+        maxes = cfg.n_layers * sum(a in ("max", "min") for a in cfg.aggregators)
+        sums = 1 + cfg.n_layers * per + (2 if pooled else 0)
+    elif isinstance(cfg, G.SchNetConfig):
+        sums = cfg.n_interactions + (1 if pooled else 0)
+    elif isinstance(cfg, G.EGNNConfig):  # the coordinates' mean, the messages' sum
+        sums = 3 * cfg.n_layers + (2 if pooled else 0)
+    return {"segment_matmul": sums, "segment_max": maxes}
+
+
+def reddit_minibatch(seed: int) -> dict:
+    """minibatch_lg through the port's sampler: reddit's base graph drawn
+    from ``seed`` (REDDIT_*), ``build_csr`` over its 114.6 M edges (timed),
+    ``sample_subgraph`` of MINIBATCH_SEEDS seeds with MINIBATCH_FANOUTS.
+    Returns the sampler's arrays and the walls."""
+    import numpy as np
+    from repro_torch.data.sampler import build_csr, sample_subgraph
+
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    cuts = np.sort(rng.integers(0, REDDIT_EDGES + 1, REDDIT_NODES - 1))
+    deg = np.diff(np.concatenate([[0], cuts, [REDDIT_EDGES]]))
+    receivers = np.repeat(np.arange(REDDIT_NODES, dtype=np.int64), deg)
+    senders = rng.integers(0, REDDIT_NODES, REDDIT_EDGES, dtype=np.int64)
+    feats = rng.standard_normal((REDDIT_NODES, REDDIT_FEATS), dtype=np.float32)
+    labels = rng.integers(0, 41, REDDIT_NODES)
+    t1 = time.perf_counter()
+    csr = build_csr(senders, receivers, REDDIT_NODES)
+    t2 = time.perf_counter()
+    del senders, receivers
+    seeds = rng.choice(REDDIT_NODES, MINIBATCH_SEEDS, replace=False)
+    sub = sample_subgraph(csr, seeds, MINIBATCH_FANOUTS, feats, labels, seed=seed)
+    t3 = time.perf_counter()
+    sub["walls_s"] = {"draw": t1 - t0, "build_csr": t2 - t1, "sample": t3 - t2}
+    return sub
+
+
+def gnn_graph(config, shape, dev, seed, minibatch=None):
+    """Phase 12's graph of ``shape`` for ``config`` on the card, drawn from
+    ``seed``, and its batch: ``(graph, batch, live_edges)``.  molecule:
+    128 graphs of 30 nodes and 64 edges (the edge capacity), the 256
+    padding nodes zero with graph id 128 (dropped by the pooling);
+    full_graph_sm: cora's 2,708 nodes and 10,556 edges, padding edges at
+    the node capacity; minibatch_lg: the sampler's subgraph (``minibatch``),
+    its node rows padded from 169,984 to the shape's 170,496 with zero rows
+    that no edge touches (the sampler's padding edges moved to the
+    capacity).  SchNet's nodes are atom types 1-9, SchNet's and EGNN's
+    positions standard normal; node classification takes every node row as
+    a seed (the reference's cell for shapes without ``n_seeds``), random
+    labels; graph regression targets of 1 + 0.1 times standard normal
+    noise: away from the initial outputs (about 0.1 to 20 in size), so that
+    no loss starts near 0, where a relative difference of losses is
+    ill-conditioned, and narrow, so that the loss reads the outputs
+    (targets of unit spread would bury a fault's move in their own)."""
+    import torch
+    from repro_torch.configs.common_gnn import GNN_SHAPES
+    from repro_torch.models.gnn import Graph
+
+    mod = _gnn_modules(config)
+    info = GNN_SHAPES[shape]
+    n, e, n_graphs = info["n_nodes"], info["n_edges"], info["n_graphs"]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    i32 = dict(device=dev, dtype=torch.int32)
+    graph_ids = None
+    seeds = labels = None
+    if shape == "minibatch_lg":
+        cap = minibatch["nodes"].shape[0]
+        s = torch.from_numpy(minibatch["senders"]).to(dev)
+        r = torch.from_numpy(minibatch["receivers"]).to(dev)
+        live = int((minibatch["senders"] < cap).sum())
+        s = torch.where(s < cap, s, n)
+        r = torch.where(r < cap, r, n)
+        real = int(minibatch["n_local"])
+        feats = torch.zeros(n, info["d_feat"], device=dev)
+        feats[:cap] = torch.from_numpy(minibatch["nodes"]).to(dev)
+        seeds = torch.from_numpy(minibatch["seed_local"]).to(dev)
+        labels = torch.from_numpy(minibatch["labels"].astype("int32")).to(dev)
+    else:
+        if shape == "molecule":
+            real = n_graphs * MOLECULE_NODES
+            base = torch.arange(n_graphs, **i32).repeat_interleave(MOLECULE_EDGES) \
+                * MOLECULE_NODES
+            s = base + torch.randint(0, MOLECULE_NODES, (e,), generator=g, **i32)
+            r = base + torch.randint(0, MOLECULE_NODES, (e,), generator=g, **i32)
+            graph_ids = torch.clamp(torch.arange(n, **i32) // MOLECULE_NODES,
+                                    max=n_graphs)
+            live = e
+        else:
+            real, live = CORA_NODES, CORA_EDGES
+            s = torch.full((e,), n, **i32)
+            r = torch.full((e,), n, **i32)
+            s[:live] = torch.randint(0, real, (live,), generator=g, **i32)
+            r[:live] = torch.randint(0, real, (live,), generator=g, **i32)
+        feats = torch.randn(n, info["d_feat"], generator=g, device=dev)
+        feats[real:] = 0
+    positions = None
+    if config == "schnet":
+        nodes = torch.randint(1, 10, (n, 1), generator=g, **i32)
+        nodes[real:] = 0
+    else:
+        nodes = feats
+    if config in ("schnet", "egnn"):
+        positions = torch.randn(n, 3, generator=g, device=dev)
+    graph = Graph(nodes=nodes, senders=s, receivers=r, positions=positions,
+                  graph_ids=graph_ids, n_graphs=n_graphs)
+    if mod.SPEC.loss_kind == "node_class":
+        if seeds is None:
+            seeds = torch.arange(n, **i32)
+            labels = torch.randint(0, info["n_classes"], (n,), generator=g, **i32)
+        batch = (seeds, labels)
+    else:
+        batch = (torch.randn(n_graphs, 1, generator=g, device=dev).mul_(0.1).add_(1),)
+    return graph, batch, live, real
+
+
+def _gnn_run(config, shape, graph, batch, dev, steps, backend, sync_steps=()):
+    """``steps`` training steps of ``config``'s cell at ``shape`` from the
+    weights drawn from SEED on the card, through ``backend``: an event at
+    each step's start, ``set_sync_debug_mode("warn")`` through the steps in
+    ``sync_steps``.  Returns (each step's device-timeline ms, losses,
+    the first GNN_CHECK_STEPS steps' outputs, host syncs by source line)."""
+    import warnings
+
+    import torch
+    from repro_torch.configs.common_gnn import GNN_SHAPES, gnn_train_step, init_train_state
+
+    spec = _gnn_modules(config).SPEC
+    cfg = spec.make_cfg(GNN_SHAPES[shape])
+    state = init_train_state(spec.init_fn(
+        torch.Generator(device=dev).manual_seed(SEED), cfg))
+    outputs = []
+
+    def apply(params, cfg, graph, backend):
+        out = spec.apply_fn(params, cfg, graph, backend=backend)
+        if len(outputs) < GNN_CHECK_STEPS:
+            outputs.append((out[0] if isinstance(out, tuple) else out).detach())
+        return out
+
+    step = gnn_train_step(apply, cfg, spec.loss_kind, backend=backend)
+    events, losses = [], []
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        try:
+            for i in range(steps):
+                torch.cuda.set_sync_debug_mode("warn" if i in sync_steps else "default")
+                events.append(torch.cuda.Event(enable_timing=True))
+                events[-1].record()
+                _, _, metrics = step(state.params, state.opt, graph, *batch)
+                losses.append(metrics["loss"])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    torch.cuda.synchronize()
+    syncs = {}
+    for w in caught:
+        if SYNC_WARNING in str(w.message):
+            site = f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+            syncs[site] = syncs.get(site, 0) + 1
+    walls = [a.elapsed_time(b) for a, b in zip(events, events[1:] + [end])]
+    return walls, [x.item() for x in losses], outputs, syncs
+
+
+def _moved_receivers(graph, real):
+    """The planted fault: each real edge's receiver moved to the next real
+    node (padding edges stay at the capacity)."""
+    import dataclasses
+
+    import torch
+
+    r = graph.receivers
+    return dataclasses.replace(graph, receivers=torch.where(
+        r < real, (r + 1) % real, r))
+
+
+def _rel_l2(a, b) -> float:
+    return ((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30)).item()
+
+
+def train_gnn_cell(config, shape, dev, minibatch=None):
+    """Phase 12 (b) for one arch and shape: GNN_STEPS steps through the
+    kernels (the device-timeline walls, edges/s, peak memory, launches a
+    step against ``gnn_launches_per_step``, host syncs of steps 2 to
+    GNN_STEPS), then GNN_CHECK_STEPS through the plain path from the same
+    weights and graph (outputs and losses within GNN_OUT_RTOL and
+    GNN_LOSS_RTOL) and as many with the planted fault (beyond the limit at
+    every step).  Returns (launches, record)."""
+    import torch
+    from repro_torch.configs.common_gnn import GNN_SHAPES
+
+    spec = _gnn_modules(config).SPEC
+    cfg = spec.make_cfg(GNN_SHAPES[shape])
+    graph, batch, live, real = gnn_graph(config, shape, dev, SEED + 1, minibatch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    walls, losses, outs, syncs = _gnn_run(config, shape, graph, batch, dev, GNN_STEPS,
+                                          "auto", sync_steps=range(1, GNN_STEPS))
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    per_step = gnn_launches_per_step(cfg, graph.graph_ids is not None)
+    want = {**{k: 0 for k in launches},
+            **{k: v * GNN_STEPS for k, v in per_step.items()}}
+    _, plain_losses, plain_outs, _ = _gnn_run(config, shape, graph, batch, dev,
+                                              GNN_CHECK_STEPS, "torch")
+    _, fault_losses, fault_outs, _ = _gnn_run(
+        config, shape, _moved_receivers(graph, real), batch, dev, GNN_CHECK_STEPS, "auto")
+    step_ms = sorted(walls[1:])[len(walls[1:]) // 2]
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)  # noqa: E731
+    rec = {
+        "config": config, "shape": shape, "live_edges": live, "real_nodes": real,
+        "first_step_ms": walls[0], "step_ms_median_2_to_8": step_ms, "step_ms": walls,
+        "edges_per_s": live / step_ms * 1e3, "max_memory_allocated_bytes": peak,
+        "launches_per_step": per_step, "host_syncs_steps_2_to_8": syncs,
+        "losses": losses, "plain_losses": plain_losses, "fault_losses": fault_losses,
+        "loss_rel_diff": [rel(a, b) for a, b in zip(losses, plain_losses)],
+        "out_rel_l2": [_rel_l2(a, b) for a, b in zip(outs, plain_outs)],
+        "fault_loss_rel_diff": [rel(a, b) for a, b in zip(fault_losses, plain_losses)],
+        "fault_out_rel_l2": [_rel_l2(a, b) for a, b in zip(fault_outs, plain_outs)],
+    }
+    log("[gnn (b)] " + json.dumps(rec))
+    if launches != want:
+        raise AssertionError(f"gnn {config} {shape}: launches {launches}, the code "
+                             f"implies {want}")
+    if not all(math.isfinite(x) for x in losses + plain_losses):
+        raise AssertionError(f"gnn {config} {shape}: losses {losses}")
+    if max(rec["out_rel_l2"]) > GNN_OUT_RTOL or max(rec["loss_rel_diff"]) > GNN_LOSS_RTOL:
+        raise AssertionError(f"gnn {config} {shape}: kernel path beyond the limit of "
+                             f"the plain path's")
+    loss_reads_outputs = not (config == "graphsage_reddit" and shape == "molecule")
+    if not min(rec["fault_out_rel_l2"]) > GNN_OUT_RTOL or (
+            loss_reads_outputs and not min(rec["fault_loss_rel_diff"]) > GNN_LOSS_RTOL):
+        raise AssertionError(f"gnn {config} {shape}: the planted fault is within the "
+                             "limit")
+    return launches, rec
+
+
+def ogb_products_graph(dev):
+    """graphsage-reddit's graph at ogb_products on the card, drawn from
+    SEED + 2: 2,449,029 of 2,449,920 nodes and 61,859,140 of 61,865,984
+    edges live (uniform endpoints), padding edges at the capacity, 100
+    standard normal features, every node row a seed with one of 47 random
+    labels (the reference's cell).  Returns (graph, batch)."""
+    import torch
+    from repro_torch.configs.common_gnn import GNN_SHAPES
+    from repro_torch.models.gnn import Graph
+
+    e, live, _, n, real = GNN_REGIMES["ogb_products"]
+    info = GNN_SHAPES["ogb_products"]
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    i32 = dict(device=dev, dtype=torch.int32)
+    s = torch.full((e,), n, **i32)
+    r = torch.full((e,), n, **i32)
+    s[:live] = torch.randint(0, real, (live,), generator=g, **i32)
+    r[:live] = torch.randint(0, real, (live,), generator=g, **i32)
+    feats = torch.randn(n, info["d_feat"], generator=g, device=dev)
+    feats[real:] = 0
+    return Graph(nodes=feats, senders=s, receivers=r), (
+        torch.arange(n, **i32),
+        torch.randint(0, info["n_classes"], (n,), generator=g, **i32))
+
+
+def train_graphsage_ogb(dev):
+    """Phase 12 (c): graphsage-reddit at ogb_products (``ogb_products_graph``),
+    GNN_OGB_STEPS steps through the kernel's partitioned launch: peak
+    memory, step walls, edges/s, launches.  Returns (launches, record)."""
+    import torch
+    from repro_torch.configs.common_gnn import GNN_SHAPES
+
+    live = GNN_REGIMES["ogb_products"][1]
+    info = GNN_SHAPES["ogb_products"]
+    graph, batch = ogb_products_graph(dev)
+    cfg = _gnn_modules("graphsage_reddit").make_cfg(info)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    walls, losses, _, syncs = _gnn_run("graphsage_reddit", "ogb_products", graph, batch,
+                                       dev, GNN_OGB_STEPS, "auto",
+                                       sync_steps=range(1, GNN_OGB_STEPS))
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    per_step = gnn_launches_per_step(cfg, False)
+    step_ms = sorted(walls[1:])[len(walls[1:]) // 2]
+    rec = {"live_edges": live, "first_step_ms": walls[0], "step_ms": walls,
+           "step_ms_median_2_to_3": step_ms, "edges_per_s": live / step_ms * 1e3,
+           "graph_bytes": base, "max_memory_allocated_bytes": peak,
+           "launches_per_step": per_step, "host_syncs_steps_2_to_3": syncs,
+           "losses": losses}
+    log("[gnn (c)] graphsage-reddit at ogb_products: " + json.dumps(rec))
+    want = {**{k: 0 for k in launches},
+            **{k: v * GNN_OGB_STEPS for k, v in per_step.items()}}
+    if launches != want:
+        raise AssertionError(f"gnn ogb_products: launches {launches}, the code "
+                             f"implies {want}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"gnn ogb_products: losses {losses}")
+    return launches, rec
+
+
+# graphsage-reddit at ogb_products gathers (E, 100) and then (E, 128) float32
+# messages, 23.05 and 29.50 GiB, each step: with fixed segments the caching
+# allocator splits the larger block for a smaller request of the next step
+# and finds no room for the larger one; segments that grow in place do not
+# fragment so.  Phase 12 (c) runs in a child process with this setting.
+OGB_ALLOC_CONF = "expandable_segments:True"
+
+
+def graphsage_ogb_in_child() -> tuple:
+    """Phase 12 (c) in a child process (``chip_smoke.py --gnn-ogb``) with
+    ``PYTORCH_CUDA_ALLOC_CONF=OGB_ALLOC_CONF``: its lines, then (launches,
+    record) from its last line."""
+    out = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--gnn-ogb"],
+        env=dict(os.environ, PYTORCH_CUDA_ALLOC_CONF=OGB_ALLOC_CONF),
+        capture_output=True, text=True, timeout=600)
+    lines = out.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log(line)
+    if out.returncode != 0:
+        raise AssertionError(f"gnn ogb_products child: exit {out.returncode}\n"
+                             + out.stderr[-4000:])
+    got = json.loads(lines[-1])
+    return got["launches"], got["record"]
+
+
+def gnn_ogb_child() -> int:
+    """The child's side of ``graphsage_ogb_in_child``."""
+    import torch
+
+    launches, rec = train_graphsage_ogb(torch.device("cuda", 0))
+    rec["alloc_conf"] = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    print(json.dumps({"launches": launches, "record": rec}))
+    return 0
+
+
+def gnn_smokes(dev):
+    """Phase 12 (d): each GNN config's ``smoke()`` on the card, its launches
+    against the code's count (the smoke configs of configs/*.py)."""
+    from repro_torch.models import gnn as G
+
+    smoke_cfgs = {  # what each smoke() builds, and whether its graph pools
+        "schnet": (G.SchNetConfig(n_interactions=2, d_hidden=16, n_rbf=20), True),
+        "pna": (G.PNAConfig(n_layers=2, d_hidden=16, d_in=8), True),
+        "egnn": (G.EGNNConfig(n_layers=2, d_hidden=16, d_in=8), True),
+        "graphsage_reddit": (G.GraphSAGEConfig(d_in=8, n_classes=5, d_hidden=16), False),
+    }
+    out, total = {}, None
+    reset_launches()
+    for config in GNN_CONFIGS:
+        before = read_launches()
+        out[config] = _gnn_modules(config).smoke()
+        after = read_launches()
+        got = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        want = {k: v for k, v in gnn_launches_per_step(*smoke_cfgs[config]).items() if v}
+        if got != want:
+            raise AssertionError(f"gnn smoke {config}: launches {got}, want {want}")
+        log(f"[gnn (d)] {config}.smoke(): {out[config]}, launches {got}")
+    return read_launches(), out
+
+
+def train_gnns(dev):
+    """Phase 12: (a) the Functions against plain autograd; (b) the four
+    archs at three shapes; (c) graphsage-reddit at ogb_products; (d) the
+    smokes.  Returns (launches by run, summary)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"device memory held at the phase's start: "
+        f"{torch.cuda.memory_allocated(dev):,} B")
+    summary = {"functions": check_segment_functions(dev)}
+    launches = {}
+    t0 = time.perf_counter()
+    minibatch = reddit_minibatch(SEED)
+    summary["minibatch_lg_sampler"] = {
+        "walls_s": minibatch.pop("walls_s"), "n_local": int(minibatch["n_local"]),
+        "live_edges": int((minibatch["senders"] < minibatch["nodes"].shape[0]).sum())}
+    log(f"[gnn] minibatch_lg sampled from reddit's {REDDIT_NODES:,} nodes and "
+        f"{REDDIT_EDGES:,} edges in {time.perf_counter() - t0:.1f} s: "
+        + json.dumps(summary["minibatch_lg_sampler"]))
+    cells = []
+    for shape in GNN_TRAIN_SHAPES:
+        for config in GNN_CONFIGS:
+            launches[f"gnn_{config}_{shape}"], rec = train_gnn_cell(
+                config, shape, dev, minibatch)
+            cells.append(rec)
+            torch.cuda.empty_cache()
+    summary["cells"] = cells
+    del minibatch
+    launches["gnn_ogb_products"], summary["ogb_products"] = graphsage_ogb_in_child()
+    torch.cuda.empty_cache()
+    launches["gnn_smoke"], summary["smoke"] = gnn_smokes(dev)
+    return launches, summary
+
+
 def record(name, source, replaces, launches, max_err, shapes):
     head = shapes[0]
     rec = {
@@ -2898,9 +3498,13 @@ def main() -> int:
         log(f"\n== phase 11: LM training, minicpm-2b at full size, {TRAIN_BATCH} x "
             f"{TRAIN_SEQ} tokens a step")
         train_launches, train = train_minicpm(dev, workdir)
+        t6 = time.perf_counter()
+        log("\n== phase 12: GNN training, the four archs at their published widths")
+        gnn_launches, gnn = train_gnns(dev)
         log(f"phase 6 took {t1 - t0:.1f} s, phase 7 {t2 - t1:.1f} s, phase 8 "
             f"{t3 - t2:.1f} s, phase 9 {t4 - t3:.1f} s, phase 10 "
-            f"{t5 - t4:.1f} s, phase 11 {time.perf_counter() - t5:.1f} s")
+            f"{t5 - t4:.1f} s, phase 11 {t6 - t5:.1f} s, phase 12 "
+            f"{time.perf_counter() - t6:.1f} s")
 
     # launches of the main path's runs only; the algorithms timed alone and
     # the comparisons with the plain versions are counted nowhere
@@ -2908,9 +3512,14 @@ def main() -> int:
     launches = {**main_launches, "algorithms": algo_launches, "cli": cli_launches,
                 "segment_reduce": segsum_launches, "serve": serve_launches,
                 **stream_launches, **ab_launches, **serve_svc_launches,
-                **train_launches}
+                **train_launches, **gnn_launches}
     hll_shape = [s for s in checks["segment_max"][1]
                  if s["case"].startswith(("h:", "h-"))]
+    # phase 12 (a): the autograd Functions, forward + backward
+    for name, op in (("segment_matmul", "sum"), ("segment_max", "max")):
+        recs = [rec for key, rec in gnn["functions"].items() if key.startswith(op + "_")]
+        checks[name] = (max([checks[name][0]] + [r["forward_max_abs_err"] for r in recs]),
+                        checks[name][1] + recs)
     kernels = [
         record("histogram", "src/repro_torch/kernels/csrc/histogram.cu",
                "src/repro/kernels/histogram.py:108",
@@ -2937,7 +3546,7 @@ def main() -> int:
     log(json.dumps({"sketch_tier_s": sketch_s, "algorithms_alone_ms": algo_ms,
                     "algorithms_alone_launches": alone_launches, "serve": serve,
                     "stream": stream, "ab_and_fused": ab, "service": service,
-                    "train": train}))
+                    "train": train, "gnn": gnn}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -2947,4 +3556,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(gnn_ogb_child() if sys.argv[1:] == ["--gnn-ogb"] else main())

@@ -20,14 +20,17 @@ from the reference's parameter pytree, so both compute with one set of
 weights; :func:`transformer_param_tree` is the other way, the model's own
 parameters in the reference's nested layout (what the port's trainer
 trains and checkpoints, so that a step either package writes restores in
-the other).  :func:`train_state_from_numpy` and :func:`train_state_to_numpy`
-carry a whole training state, ``{"params": ..., "opt": {"step", "m",
-"v"}}``, across both ways.
+the other).  :func:`gnn_params_from_numpy` and :func:`gnn_params_to_numpy`
+carry a GNN's parameter tree (the reference's nested dicts and lists,
+which the port's models take as they are).  :func:`train_state_from_numpy`
+and :func:`train_state_to_numpy` carry a whole training state,
+``{"params": ..., "opt": {"step", "m", "v"}}``, across both ways, a
+transformer's or a GNN's.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import TYPE_CHECKING, Dict, Iterator, Mapping, Tuple
+from typing import TYPE_CHECKING, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,7 +44,8 @@ if TYPE_CHECKING:  # the model and training layers load only when used
 
 __all__ = ["table_from_numpy", "sketch_state_from_numpy", "results_to_numpy",
            "tensor_leaves", "transformer_params_from_numpy",
-           "transformer_param_tree", "train_state_from_numpy",
+           "transformer_param_tree", "gnn_params_from_numpy",
+           "gnn_params_to_numpy", "train_state_from_numpy",
            "train_state_to_numpy"]
 
 
@@ -183,31 +187,64 @@ def transformer_param_tree(model: Transformer) -> Dict:
     return tree
 
 
-def train_state_from_numpy(tree: Mapping, cfg: TransformerConfig, device="cuda"
-                           ) -> Tuple[Transformer, TrainState]:
+def _tensor(x, device: torch.device) -> torch.Tensor:
+    """A numpy leaf as a tensor on ``device`` in its own type (a bfloat16
+    leaf as ``torch.bfloat16``)."""
+    a = np.asarray(x)
+    dt = (torch.bfloat16 if a.dtype.name == "bfloat16"
+          else torch.from_numpy(np.empty(0, a.dtype)).dtype)
+    return _weight(a, dt, device)
+
+
+def gnn_params_from_numpy(tree, device="cuda"):
+    """A GNN's parameter tree on ``device`` from the reference's
+    (``repro.models.gnn.*_init``: dicts and lists, leaves as numpy arrays or
+    anything ``np.asarray`` takes), the same structure, each leaf in its own
+    type."""
+    from .train.checkpoint import tree_flatten, tree_unflatten
+
+    device = resolve_device(device)
+    leaves, treedef = tree_flatten(tree)
+    return tree_unflatten(treedef, [_tensor(x, device) for x in leaves])
+
+
+def gnn_params_to_numpy(tree):
+    """A tree of tensors (a GNN's parameters, a whole training state) with
+    every leaf on the host as numpy, the same structure; a bfloat16 leaf
+    widens to float32 (exactly: numpy has no bfloat16)."""
+    from .train.checkpoint import tree_flatten, tree_unflatten
+
+    leaves, treedef = tree_flatten(tree)
+    return tree_unflatten(treedef, [
+        x.detach().to(torch.float32 if x.dtype == torch.bfloat16 else x.dtype)
+        .cpu().numpy() for x in leaves])
+
+
+def train_state_from_numpy(tree: Mapping, cfg: Optional[TransformerConfig] = None,
+                           device="cuda") -> Tuple[Optional[Transformer], TrainState]:
     """The port's model and training state on ``device`` from the
     reference's ``TrainState.tree()`` (``{"params": ..., "opt": {"step",
-    "m", "v"}}``, leaves as numpy arrays): the weights in ``cfg.dtype``,
-    the moments in their own type (float32 or bfloat16), the step a 0-d
-    int32 tensor; the parameters require grad."""
+    "m", "v"}}``, leaves as numpy arrays): with a ``TransformerConfig`` the
+    model holding the weights in ``cfg.dtype``; without one (a GNN's state)
+    no model, None, and the parameter tree as it is, each leaf in its own
+    type.  The moments keep their type (float32 or bfloat16), the step is a
+    0-d int32 tensor, and the parameters require grad."""
     from .train.checkpoint import tree_flatten, tree_unflatten
     from .train.loop import TrainState
 
-    model = transformer_params_from_numpy(tree["params"], cfg, device)
-    params = transformer_param_tree(model)
+    model = None
+    if cfg is None:
+        params = gnn_params_from_numpy(tree["params"], device)
+    else:
+        model = transformer_params_from_numpy(tree["params"], cfg, device)
+        params = transformer_param_tree(model)
     leaves, treedef = tree_flatten(params)
     for leaf in leaves:
         leaf.requires_grad_(True)
-    device = model.device
-
-    def moment(x):
-        a = np.asarray(x)
-        dt = (torch.bfloat16 if a.dtype.name == "bfloat16"
-              else torch.from_numpy(np.empty(0, a.dtype)).dtype)
-        return _weight(a, dt, device)
-
+    device = leaves[0].device
     moments = {k: tree_unflatten(treedef, [
-        moment(x) for x in tree_flatten(tree["opt"][k])[0]]) for k in ("m", "v")}
+        _tensor(x, device) for x in tree_flatten(tree["opt"][k])[0]])
+        for k in ("m", "v")}
     step = torch.full((), int(np.asarray(tree["opt"]["step"])),
                       dtype=torch.int32, device=device)
     return model, TrainState(params=params, opt={"step": step, **moments})
@@ -217,9 +254,4 @@ def train_state_to_numpy(state: TrainState) -> Dict:
     """``state.tree()`` with every leaf on the host as numpy, in the
     reference's layout; a bfloat16 leaf widens to float32 (exactly: numpy
     has no bfloat16)."""
-    from .train.checkpoint import tree_flatten, tree_unflatten
-
-    leaves, treedef = tree_flatten(state.tree())
-    return tree_unflatten(treedef, [
-        x.detach().to(torch.float32 if x.dtype == torch.bfloat16 else x.dtype)
-        .cpu().numpy() for x in leaves])
+    return gnn_params_to_numpy(state.tree())

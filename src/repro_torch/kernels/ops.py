@@ -32,8 +32,8 @@ import torch
 from . import ref
 from .flash_attention import FlashAttention, flash_attention_cuda
 from .histogram import histogram_cuda
-from .segment_matmul import segment_matmul_cuda
-from .segreduce import segment_max_cuda
+from .segment_matmul import SegmentSum, segment_matmul_cuda
+from .segreduce import SegmentMax, segment_max_cuda, segment_max_features_cuda
 from .sketch import cms_update_cuda, hll_update_cuda
 
 __all__ = ["histogram", "windowed_histogram", "segmented_reduce",
@@ -47,6 +47,11 @@ def _use_kernel(backend: str, x: torch.Tensor) -> bool:
         raise ValueError(f"unknown backend {backend!r}; expected one of "
                          f"{_BACKENDS}")
     return backend == "cuda" or (backend == "auto" and x.is_cuda)
+
+
+def _records(*xs: torch.Tensor) -> bool:
+    """Whether autograd records an operation on ``xs``."""
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
 
 
 def histogram(
@@ -169,15 +174,33 @@ def segment_reduce(
     seg_ids: torch.Tensor,
     num_segments: int,
     *,
+    op: str = "sum",
     backend: str = "auto",
 ) -> torch.Tensor:
-    """Feature aggregation ``out[s, :] = sum_{i: seg_ids[i]==s} x[i, :]``
-    (GNN message passing): ids outside ``[0, num_segments)`` are dropped,
-    sums are float32 and so is the ``(num_segments, d)`` result, on both
-    paths, as the TPU kernel returns it."""
-    impl = (segment_matmul_cuda if _use_kernel(backend, seg_ids)
-            else ref.ref_segment_matmul)
-    return impl(x, seg_ids, num_segments)
+    """Feature aggregation (GNN message passing) of ``(n, d)`` rows into
+    ``(num_segments, d)``: ``op="sum"`` gives ``out[s, :] = sum_{i:
+    seg_ids[i]==s} x[i, :]`` (empty segments 0; the segment-sum kernel,
+    ``ref.ref_segment_matmul`` its plain version), ``op="max"`` the
+    feature-wise max (empty segments ``-inf``; the segment-max kernel over
+    flattened ids, ``ref.ref_segment_max_features``).  Ids outside ``[0,
+    num_segments)`` are dropped; the result is float32 on both paths, as
+    the TPU kernel returns it.  Where autograd records, the kernel runs as
+    the forward of ``SegmentSum`` or ``SegmentMax``, whose backward gives
+    plain autograd's gradient bit for bit; the plain versions are
+    differentiable as they are."""
+    if op == "sum":
+        plain, kernel, function = (ref.ref_segment_matmul, segment_matmul_cuda,
+                                   SegmentSum)
+    elif op == "max":
+        plain, kernel, function = (ref.ref_segment_max_features,
+                                   segment_max_features_cuda, SegmentMax)
+    else:
+        raise ValueError(f"unknown segment-reduce op {op!r}")
+    if not _use_kernel(backend, seg_ids):
+        return plain(x, seg_ids, num_segments)
+    if _records(x):
+        return function.apply(x, seg_ids, num_segments)
+    return kernel(x, seg_ids, num_segments)
 
 
 def attention(
@@ -200,7 +223,6 @@ def attention(
     ``custom_vjp``; the plain version is differentiable as it is."""
     if not _use_kernel(backend, q):
         return ref.ref_attention(q, k, v, causal=causal, window=window, scale=scale)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
+    if _records(q, k, v):
         return FlashAttention.apply(q, k, v, causal, window, scale)
     return flash_attention_cuda(q, k, v, causal=causal, window=window, scale=scale)

@@ -13,7 +13,7 @@ import torch
 
 __all__ = ["ref_histogram", "ref_histogram_blocked", "ref_segment_max",
            "ref_segment_max_blocked", "ref_cms_update", "ref_cms_update_clustered",
-           "ref_hll_update", "ref_segment_matmul",
+           "ref_hll_update", "ref_segment_matmul", "ref_segment_max_features",
            "ref_segment_matmul_tiled", "ref_attention", "ref_attention_split"]
 
 
@@ -301,6 +301,24 @@ def ref_segment_matmul(
     return torch.zeros(num_segments + 1, x.shape[1], dtype=torch.float32,
                        device=x.device).index_add_(
         0, torch.where(ok, seg_ids, num_segments).long(), rows)[:num_segments]
+
+
+def ref_segment_max_features(
+    x: torch.Tensor, seg_ids: torch.Tensor, num_segments: int
+) -> torch.Tensor:
+    """Feature-wise segment max: ``out[s, :] = max_{i: seg_ids[i]==s} x[i, :]``
+    in float32, ``(num_segments, d)``; ids outside ``[0, num_segments)`` are
+    dropped and empty segments are ``-inf`` (``jax.ops.segment_max``'s
+    identity).  One ``scatter_reduce_(amax)`` into ``num_segments + 1``
+    rows, the last the dropped rows' spill: its autograd splits a segment's
+    gradient evenly among the rows that tie for its max.
+    """
+    ok = (seg_ids >= 0) & (seg_ids < num_segments)
+    idx = torch.where(ok, seg_ids, num_segments).long()[:, None].expand(
+        -1, x.shape[1])
+    return torch.full((num_segments + 1, x.shape[1]), float("-inf"),
+                      dtype=torch.float32, device=x.device).scatter_reduce_(
+        0, idx, x.to(torch.float32), reduce="amax")[:num_segments]
 
 
 def ref_segment_matmul_tiled(

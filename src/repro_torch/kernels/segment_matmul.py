@@ -18,6 +18,12 @@ kernel's decomposition.
 else; the dispatch between kernel and plain version lives in
 :mod:`repro_torch.kernels.ops`.  ``LAUNCHES`` counts the wrapper's kernel
 launches, so a run can show that its main path went through the kernel.
+
+Under autograd the kernel runs as the forward of :class:`SegmentSum`,
+whose backward is :func:`segment_sum_backward`: each row takes its
+segment's gradient, a dropped row 0.  That is the gather the plain
+version's autograd (``index_add_``'s) computes, so the two gradients are
+bit-equal; it saves the ids and nothing of the rows.
 """
 from __future__ import annotations
 
@@ -25,12 +31,13 @@ import ctypes
 from typing import Dict, NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from . import build
 from ._device import _check, _on_device, _sm_count
 
 __all__ = ["LAUNCHES", "PARTITION_IDS", "SegmentSumPlan", "plan_segment_sum",
-           "segment_matmul_cuda"]
+           "segment_matmul_cuda", "segment_sum_backward", "SegmentSum"]
 
 LAUNCHES = 0
 
@@ -171,3 +178,32 @@ def segment_matmul_cuda(
         raise RuntimeError(f"segment-sum kernel launch failed: cudaError {err}")
     LAUNCHES += 1
     return out
+
+
+def segment_sum_backward(grad: torch.Tensor, seg_ids: torch.Tensor,
+                         num_segments: int) -> torch.Tensor:
+    """The segment sum's gradient with respect to its rows, float32 ``(n,
+    d)``: row i takes ``grad[seg_ids[i]]``, a row whose id lies outside
+    ``[0, num_segments)`` takes 0 (a zero row appended to ``grad`` is its
+    spill).  Any device; no host sync."""
+    ok = (seg_ids >= 0) & (seg_ids < num_segments)
+    return F.pad(grad, (0, 0, 0, 1)).index_select(
+        0, torch.where(ok, seg_ids, num_segments))
+
+
+class SegmentSum(torch.autograd.Function):
+    """``segment_matmul_cuda`` forward, :func:`segment_sum_backward`
+    backward: ``SegmentSum.apply(x, seg_ids, num_segments)``."""
+
+    @staticmethod
+    def forward(ctx, x, seg_ids, num_segments):
+        ctx.save_for_backward(seg_ids)
+        ctx.attrs = (num_segments, x.dtype)
+        return segment_matmul_cuda(x, seg_ids, num_segments)
+
+    @staticmethod
+    def backward(ctx, g):
+        num_segments, dtype = ctx.attrs
+        (seg_ids,) = ctx.saved_tensors
+        return (segment_sum_backward(g, seg_ids, num_segments).to(dtype),
+                None, None)

@@ -13,6 +13,17 @@ kernel's seed and fold.
 else; the dispatch between kernel and plain version lives in
 :mod:`repro_torch.kernels.ops`.  ``LAUNCHES`` counts the wrapper's kernel
 launches, so a run can show that its main path went through the kernel.
+
+The feature-wise max of ``(n, d)`` rows into ``(num_segments, d)``
+(:func:`segment_max_features_cuda`, a GNN's max aggregation) is the same
+1-D kernel over the flattened ids ``seg_id * d + feature``: ``n * d``
+values into ``num_segments * d`` segments.  A max is exact in floating
+point, so this is bit-equal to the plain ``scatter_reduce_``
+(:func:`repro_torch.kernels.ref.ref_segment_max_features`).  Under
+autograd it runs as the forward of :class:`SegmentMax`, whose backward
+(:func:`segment_max_backward`) splits each segment's gradient evenly among
+the rows that tie for its max, in the plain autograd's operations, so the
+two gradients are bit-equal.
 """
 from __future__ import annotations
 
@@ -20,11 +31,14 @@ import ctypes
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from . import build
 from ._device import _check, _on_device, _sm_count
 
-__all__ = ["LAUNCHES", "segment_max_cuda"]
+__all__ = ["LAUNCHES", "segment_max_cuda", "flat_segment_ids",
+           "segment_max_features_cuda",
+           "segment_max_backward", "SegmentMax"]
 
 LAUNCHES = 0
 
@@ -135,3 +149,70 @@ def segment_max_cuda(
         raise RuntimeError(f"segment-max kernel launch failed: cudaError {err}")
     LAUNCHES += 1
     return out
+
+
+def flat_segment_ids(seg_ids: torch.Tensor, num_segments: int,
+                     d: int) -> torch.Tensor:
+    """The ids of ``(n, d)`` rows' elements, flattened: ``seg_id * d +
+    feature`` where ``seg_id`` lies in ``[0, num_segments)``, else -1 (a
+    dropped row's elements stay dropped).  int32 ``(n * d,)``, row-major as
+    ``x.reshape(-1)``."""
+    ok = (seg_ids >= 0) & (seg_ids < num_segments)
+    base = torch.where(ok, seg_ids, 0).to(torch.int32)[:, None] * d
+    return torch.where(ok[:, None], base + torch.arange(
+        d, dtype=torch.int32, device=seg_ids.device), -1).reshape(-1)
+
+
+def segment_max_features_cuda(x: torch.Tensor, seg_ids: torch.Tensor,
+                              num_segments: int) -> torch.Tensor:
+    """Feature-wise segment max on the card, the contract of
+    ``ref_segment_max_features``: ``x`` ``(n, d)``, ``seg_ids`` int32 ``(n,)``,
+    ids outside ``[0, num_segments)`` dropped; float32 ``(num_segments, d)``,
+    empty segments ``-inf``.  One launch of the segment-max kernel over the
+    flattened ids (a dropped row's are -1); ``num_segments * d`` must be
+    below 2^31."""
+    if x.dim() != 2:
+        raise ValueError(f"x must be (n, d), got shape {tuple(x.shape)}")
+    n, d = x.shape
+    if not 0 <= num_segments * d < 2 ** 31:
+        raise ValueError(f"{num_segments} segments x {d} features beyond the "
+                         "kernel's int32 segment ids")
+    _check("seg_ids", seg_ids, torch.int32, (n,), seg_ids.device)
+    return segment_max_cuda(x.reshape(-1), flat_segment_ids(seg_ids, num_segments, d),
+                            num_segments * d).view(num_segments, d)
+
+
+def segment_max_backward(grad: torch.Tensor, x: torch.Tensor,
+                         seg_ids: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """The feature-wise segment max's gradient with respect to its rows,
+    float32 ``(n, d)``, from the forward's rows ``x``, ids and result
+    ``out``: each row that equals its segment's max takes the segment's
+    gradient over the count of such rows, an empty segment counting one;
+    every other row, and a dropped one, 0.  These are plain
+    ``scatter_reduce_(amax)``'s backward operations (``value``,
+    ``N_to_distribute``, ``grad / N``, ``(src == value) * ...``), the
+    dropped rows' spill row a NaN max that no row equals.  Any device; no
+    host sync."""
+    s = out.shape[0]
+    spill = torch.where((seg_ids >= 0) & (seg_ids < s), seg_ids, s)
+    value = F.pad(out, (0, 0, 0, 1), value=float("nan")).index_select(0, spill)
+    src_is_max = x == value
+    counts = F.pad((out == float("-inf")).to(out.dtype), (0, 0, 0, 1),
+                   value=1.0).index_add_(0, spill, src_is_max.to(out.dtype))
+    return src_is_max * (F.pad(grad, (0, 0, 0, 1)) / counts).index_select(0, spill)
+
+
+class SegmentMax(torch.autograd.Function):
+    """``segment_max_features_cuda`` forward, :func:`segment_max_backward`
+    backward: ``SegmentMax.apply(x, seg_ids, num_segments)``."""
+
+    @staticmethod
+    def forward(ctx, x, seg_ids, num_segments):
+        out = segment_max_features_cuda(x, seg_ids, num_segments)
+        ctx.save_for_backward(x, seg_ids, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, seg_ids, out = ctx.saved_tensors
+        return segment_max_backward(g, x, seg_ids, out).to(x.dtype), None, None

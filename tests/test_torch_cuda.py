@@ -975,3 +975,133 @@ def test_train_checkpoint_round_trip_on_the_card(dev, tmp_path):
         assert a.is_cuda and a.dtype == b.dtype
         assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
                            b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
+
+
+# ----------------------------------------------------------------- the GNNs
+
+
+def _tied(g, n, d, dev):
+    """Values on a grid of 1/4: feature-wise maxima tie."""
+    return torch.randn(n, d, generator=g, device=dev).mul_(4).round_().div_(4)
+
+
+@pytest.mark.parametrize("n,d,segs", [(8192, 64, 4096), (8192, 1, 4096), (8192, 3, 4096),
+                                      (10752, 1433, 2816), (168_960, 75, 170_496),
+                                      (300_000, 128, 50_000)])
+def test_gnn_segment_sum_function_matches_plain_autograd(dev, n, d, segs):
+    """``SegmentSum`` (``ops.segment_reduce`` under autograd): integer-valued
+    rows summed bit-equal to the plain path, one launch, and the rows'
+    gradient bit-equal to plain autograd's for the same upstream gradient;
+    dropped ids (negative, at and past the capacity) take 0."""
+    g = torch.Generator(device=dev).manual_seed(n + d)
+    ids = _rand(g, -2, segs + 3, n, dev)
+    x = torch.randint(-8, 9, (n, d), generator=g, device=dev,
+                      dtype=torch.float32).requires_grad_()
+    before = segsum_kernel.LAUNCHES
+    got = ops.segment_reduce(x, ids, segs)
+    assert segsum_kernel.LAUNCHES == before + 1
+    assert type(got.grad_fn).__name__ == "SegmentSumBackward"
+    want = ops.segment_reduce(x, ids, segs, backend="torch")
+    assert torch.equal(got, want)
+    up = torch.randn(segs, d, generator=g, device=dev)
+    got_grad = torch.autograd.grad(got, x, up)[0]
+    assert torch.equal(got_grad, torch.autograd.grad(want, x, up)[0])
+    assert not bool(got_grad[(ids < 0) | (ids >= segs)].any())
+
+
+@pytest.mark.parametrize("n,d,segs", [(8192, 75, 4096), (8192, 1, 4096),
+                                      (168_960, 75, 170_496), (100_000, 8, 2_000_000)])
+def test_gnn_segment_max_function_matches_plain_autograd(dev, n, d, segs):
+    """``SegmentMax``: the feature-wise max through the 1-D segment-max
+    kernel over flattened ids bit-equal to the plain ``scatter_reduce_``,
+    one launch; with ties planted (values on a grid), the rows' gradient
+    bit-equal to plain autograd's tie split."""
+    g = torch.Generator(device=dev).manual_seed(n + d + 1)
+    ids = _rand(g, -2, segs + 3, n, dev)
+    x = _tied(g, n, d, dev).requires_grad_()
+    before = segmax_kernel.LAUNCHES
+    got = ops.segment_reduce(x, ids, segs, op="max")
+    assert segmax_kernel.LAUNCHES == before + 1
+    assert type(got.grad_fn).__name__ == "SegmentMaxBackward"
+    want = ops.segment_reduce(x, ids, segs, op="max", backend="torch")
+    assert torch.equal(got, want)
+    up = torch.randn(segs, d, generator=g, device=dev)
+    assert torch.equal(torch.autograd.grad(got, x, up)[0],
+                       torch.autograd.grad(want, x, up)[0])
+    with torch.no_grad():  # no autograd: the kernel alone, the same result
+        assert torch.equal(ops.segment_reduce(x, ids, segs, op="max"), want)
+
+
+def _molecule_graph(dev, config, seed=0):
+    """The molecule shape on the card: 128 graphs of 30 nodes and 64 edges,
+    the padding nodes' graph id 128; the batch of the arch's loss."""
+    from repro_torch.configs.common_gnn import GNN_SHAPES
+    from repro_torch.models.gnn import Graph
+
+    info = GNN_SHAPES["molecule"]
+    n, e, graphs = info["n_nodes"], info["n_edges"], info["n_graphs"]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    base = torch.arange(graphs, device=dev, dtype=torch.int32).repeat_interleave(64) * 30
+    s, r = (base + _rand(g, 0, 30, e, dev) for _ in range(2))
+    nodes = (_rand(g, 1, 10, n, dev)[:, None] if config == "schnet"
+             else torch.randn(n, info["d_feat"], generator=g, device=dev))
+    graph = Graph(nodes=nodes, senders=s, receivers=r,
+                  positions=torch.randn(n, 3, generator=g, device=dev),
+                  graph_ids=torch.clamp(torch.arange(n, device=dev,
+                                                     dtype=torch.int32) // 30, max=graphs),
+                  n_graphs=graphs)
+    if config == "graphsage_reddit":
+        return graph, (torch.arange(n, device=dev, dtype=torch.int32),
+                       torch.zeros(n, device=dev, dtype=torch.int32))
+    # targets away from the initial outputs: no loss near 0 (chip_smoke.py)
+    return graph, (1 + 0.1 * torch.randn(graphs, 1, generator=g, device=dev),)
+
+
+@pytest.mark.parametrize("config", ["schnet", "pna", "egnn", "graphsage_reddit"])
+def test_gnn_train_steps_without_a_host_sync(dev, config):
+    """Three training steps of the arch's cell at the molecule shape, at
+    its published widths, each under ``set_sync_debug_mode("error")`` after
+    a first step (builds, binds, cuBLAS): the kernels' launches as the code
+    implies them, and the first step's loss within 1e-4 of the plain
+    path's from the same weights."""
+    import importlib
+
+    from repro_torch.configs.common_gnn import GNN_SHAPES, init_train_state
+    from repro_torch.kernels.launches import read_launches, reset_launches
+
+    spec = importlib.import_module(f"repro_torch.configs.{config}").SPEC
+    cfg = spec.make_cfg(GNN_SHAPES["molecule"])
+    graph, batch = _molecule_graph(dev, config)
+    losses = {}
+    for backend in ("torch", "auto"):
+        state = init_train_state(spec.init_fn(torch.Generator(device=dev).manual_seed(0),
+                                              cfg))
+        step = spec.step_fn("molecule", backend=backend)
+        losses[backend] = step(state.params, state.opt, graph, *batch)[2]["loss"].item()
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        metrics = [step(state.params, state.opt, graph, *batch)[2] for _ in range(3)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    launches = {k: v for k, v in read_launches().items() if v}
+    sums = {"schnet": 4, "pna": 1 + 4 * 4 + 2, "egnn": 3 * 4 + 2,
+            "graphsage_reddit": 4}[config]
+    want = {"segment_matmul": 3 * sums}
+    if config == "pna":
+        want["segment_max"] = 3 * 2 * 4
+    assert launches == want
+    assert all(torch.isfinite(m["loss"]) for m in metrics)
+    assert int(state.opt["step"]) == 4
+    assert abs(losses["auto"] - losses["torch"]) <= 1e-4 * max(abs(losses["torch"]), 1e-30)
+
+
+@pytest.mark.parametrize("config", ["schnet", "pna", "egnn", "graphsage_reddit"])
+def test_gnn_config_smoke_on_the_card(dev, config):
+    import importlib
+
+    mod = importlib.import_module(f"repro_torch.configs.{config}")
+    before = segsum_kernel.LAUNCHES
+    assert mod.smoke() == mod.smoke("cpu")
+    assert segsum_kernel.LAUNCHES > before

@@ -56,6 +56,16 @@ version recomputed and differentiated), of the optimizer
 counts under the backward or the optimizer when the profiler's CPU range
 around those calls (added here, not in the port) launched it.
 
+GNN training, ``gnn_<config>_<shape>``: one training step of
+``configs/<config>`` (schnet, pna, egnn, graphsage_reddit) at its published
+widths on ``chip_smoke.py``'s phase-12 graph of ``<shape>`` (molecule,
+full_graph_sm, minibatch_lg; ``gnn_graphsage_reddit_ogb_products`` too),
+the state advancing from call to call.  Its record adds the device time of
+the segment-sum and segment-max kernels, of the matrix products and of the
+rest.  ``gnn_graphsage_reddit_ogb_products`` needs
+``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True`` in the environment
+(``chip_smoke.py``'s ``OGB_ALLOC_CONF`` says why).
+
     python3 tools/profile_torch_challenge.py --scale 24
     python3 tools/profile_torch_challenge.py --phases analyze analyze_naive analyze_grid fused_replay
     python3 tools/profile_torch_challenge.py --scale 20 --phases bfs components pagerank triangles
@@ -64,6 +74,7 @@ around those calls (added here, not in the port) launched it.
     python3 tools/profile_torch_challenge.py --phases hist_activity hist_gated cms_fold
     python3 tools/profile_torch_challenge.py --phases lm_prefill lm_decode --layers 36
     python3 tools/profile_torch_challenge.py --phases lm_train --reps 3
+    python3 tools/profile_torch_challenge.py --phases gnn_pna_molecule gnn_pna_minibatch_lg
 """
 from __future__ import annotations
 
@@ -204,7 +215,10 @@ KERNEL_PHASES = tuple(f"{k}{s}" for k in ("segmax_vxm", "hll_fold", "cms_fold",
                       for s in ("", "_library"))
 LM_PHASES = ("lm_prefill", "lm_decode")
 TRAIN_PHASES = ("lm_train",)
-PHASES = TABLE_PHASES + KERNEL_PHASES + LM_PHASES + TRAIN_PHASES
+GNN_PHASES = tuple(f"gnn_{c}_{s}" for s in ("molecule", "full_graph_sm", "minibatch_lg")
+                   for c in ("schnet", "pna", "egnn", "graphsage_reddit")
+                   ) + ("gnn_graphsage_reddit_ogb_products",)
+PHASES = TABLE_PHASES + KERNEL_PHASES + LM_PHASES + TRAIN_PHASES + GNN_PHASES
 CALLS = 20  # back-to-back calls per kernel phase
 LM_BATCH, LM_PROMPT, LM_SLOTS, LM_STEPS = 4, 2048, 2080, 8
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048
@@ -448,6 +462,38 @@ def train_phases(dev):
     return {"lm_train": lambda: trainer.run(state, batches, 1, log_every=0)}
 
 
+def gnn_phases(names, dev):
+    """One training step a call of each named ``gnn_<config>_<shape>``, on
+    the graph ``chip_smoke.py``'s phase 12 draws (the sampler over the
+    reddit-sized base graph for minibatch_lg, drawn once)."""
+    import torch
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+    import chip_smoke
+    from repro_torch.configs.common_gnn import GNN_SHAPES, init_train_state
+
+    minibatch = (chip_smoke.reddit_minibatch(chip_smoke.SEED)
+                 if any(n.endswith("minibatch_lg") for n in names) else None)
+    out = {}
+    for name in names:
+        config, shape = next((c, name[len(f"gnn_{c}_"):]) for c in
+                             ("graphsage_reddit", "schnet", "pna", "egnn")
+                             if name.startswith(f"gnn_{c}_"))
+        if shape == "ogb_products":
+            graph, batch = chip_smoke.ogb_products_graph(dev)
+        else:
+            graph, batch, _, _ = chip_smoke.gnn_graph(config, shape, dev,
+                                                      chip_smoke.SEED + 1, minibatch)
+        spec = chip_smoke._gnn_modules(config).SPEC
+        state = init_train_state(spec.init_fn(
+            torch.Generator(device=dev).manual_seed(chip_smoke.SEED),
+            spec.make_cfg(GNN_SHAPES[shape])))
+        step = spec.step_fn(shape)
+        out[name] = (lambda step=step, state=state, graph=graph, batch=batch:
+                     step(state.params, state.opt, graph, *batch))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=24)
@@ -473,6 +519,9 @@ def main(argv=None) -> int:
         phases.update(lm_phases(args, dev))
     if set(TRAIN_PHASES) & set(args.phases):
         phases.update(train_phases(dev))
+    gnn = [n for n in args.phases if n in GNN_PHASES]
+    if gnn:
+        phases.update(gnn_phases(gnn, dev))
     for name in args.phases:
         calls = CALLS if name in KERNEL_PHASES else None
         print(json.dumps(profile_phase(name, phases[name], args.reps, args.top,
