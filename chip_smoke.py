@@ -70,14 +70,20 @@ Phases (any failure exits non-zero):
      and 5 queries against that cache, the two sides of the dispatch
      boundary (16 and 20 packed rows); (d32k) one query against 32,767 of
      32,768 slots, granite's decode_32k cache length; (m) minicpm prefill,
-     36 heads MHA, D 64; (w) a 4,096 sliding window over L 8,192; beside
-     (p), (d), (d32k) and (w), two planted faults that the check must reject
-     (the newest key dropped, the output scaled by 0.98); then edge cases
+     36 heads MHA, D 64; (w) a 4,096 sliding window over L 8,192; (a7)
+     arctic prefill, B 2, 56/8 heads (a GQA group of 7), L 2,048, and
+     (a7-d) its decode against a 2,080-slot cache cut (7 packed rows; a
+     chunk of 2 queries, 14 rows, checked too); (w-d) mixtral decode
+     against 6,145 and 6,176 of 6,176 slots under its 4,096 window; beside
+     (p), (d), (d32k), (w), (a7), (a7-d) and (w-d), two planted faults that
+     the check must reject (the newest key dropped, the output scaled by
+     0.98); then edge cases
      in float32 (to 1e-4) and bfloat16 (lq < lkv, lengths off the tiles and
      on them, non-causal, decode at lkv 1, below one chunk and under a
      narrow window, 16 rows of a group of 8, lq > lkv).  Each shape is timed
-     also on the device alone (the host's work left out), and at (d), (c4)
-     and (d32k) with the prefill path forced beside the decode path;
+     also on the device alone (the host's work left out), and at (d), (c4),
+     (d32k), (a7-d) and (w-d) with the prefill path forced beside the
+     decode path;
    * segment sum at the GNN regimes of ``configs/common_gnn.py``: molecule
      (8,192 edges x 64 features into 4,096 segments) and full_graph_sm
      (10,752 x 1,433 into 2,816, 196 padding edges at the capacity), which
@@ -210,12 +216,55 @@ Phases (any failure exits non-zero):
    allocator grows its segments (``OGB_ALLOC_CONF``): peak memory, step
    walls, edges/s; (d) each GNN config's ``smoke()`` on the card.
 
+13. MoE serving at full width, weights drawn on the card from ``SEED``:
+   (a) mixtral-8x7b cut to 8 of its 32 layers (23.7 GB), two requests of
+   6,144 random tokens (past its 4,096-key window; capacity 3,848 an
+   expert) prefilled, then 32 greedy decode steps (capacity 8), through
+   the attention kernel and the segment-sum kernel (the combine), once
+   recorded to warm up, once counted and timed (one launch of each kernel
+   a layer a call; the decode steps' host syncs counted with
+   ``set_sync_debug_mode("warn")``: 0); then through the plain path freely
+   (the share of (token, layer) top-2 picks on which the two paths agree,
+   the free logits error, printed) and routed as the kernel path routed
+   (the last-token logits within ``MOE_SERVE_TOL`` relative L2 at every
+   call), and a control that adds every live combine row to the next token
+   (beyond the limit at every call); dropped rows, prefill s and tokens/s,
+   decode ms a step and tokens/s, peak memory; then the same prefill with
+   ``optimized_config()``'s batched dispatch (capacity factor 1.0) against
+   its own plain path and control; (b) arctic-480b cut to 2 of its 35
+   layers (55.4 GB: 128 experts and the dense residual; a GQA group of 7),
+   2 x 2,048 tokens (capacity 88), the same runs and checks; (c) the
+   segment-sum kernel at the combine's shapes (two live bf16 rows a token,
+   the other slots dropped: 30,784 x 4,096 into 12,288, 11,264 x 7,168
+   into 4,096, 64 x 4,096 and 1,024 x 7,168 into 2): float32 sums bit-equal
+   to the plain version's, cast to bf16 compared with ``index_add_`` in
+   bf16 (bit-equal or not, reported), each timed by events and on the
+   device alone beside ``index_add_`` and the bound.
+
+14. xDeepFM serving at its published size (39 tables, 38,190,000 rows x (10
+   + 1) float32, 1.68 GB, drawn on the card; ids from ``recsys_batches``):
+   ``serve_p99`` (512 rows), ``serve_bulk`` (262,144 rows, the CIN in
+   chunks of 2^15) and ``retrieval_cand`` (one query against 2^20
+   candidates), each through the port's serve step (one gathered row a
+   field, as the reference's ``jnp.take``: no kernel launch) and through
+   the reference's own formulation written out plainly
+   (``_xdeepfm_plain``: ``F.embedding``, the CIN as its two einsums),
+   within ``XDEEPFM_TOL`` relative L2, with a control (one field's ids
+   shifted by one) beyond it, rows/s and peak memory; then
+   ``embedding_bag`` at 65,536 bags of 39 uniform ids in the 10,000,000-row
+   table, in the sum, mean and weighted modes, once counted (4 launches of
+   the segment-sum kernel, the mean's count of ids its own), each within
+   the reordering bound of the plain version and timed beside
+   ``F.embedding_bag`` (or ``index_add_``) and the bound, and the
+   segment-sum kernel alone on its gathered rows.
+
 Then it prints one JSON line of kernel records, whose launch counts are
 those of the main path's runs (phases 3, 4 and 5, without the algorithms
 timed on their own; the segment-sum entry point's run of phase 6; phase
 7's counted run; phase 8's, 9's and 10's runs, phase 11's (b) kernel
-run, (c) runs and (d) CLI runs, and phase 12's kernel runs of (b), (c)
-and (d), each under its own name),
+run, (c) runs and (d) CLI runs, phase 12's kernel runs of (b), (c)
+and (d), phase 13's counted runs and phase 14's counted serve calls, each
+under its own name),
 the card line
 again, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -252,9 +301,10 @@ SERVE_DEGRADE_LINKS = 1 << 23
 # what torch.cuda.set_sync_debug_mode("warn") says at a synchronizing call
 SYNC_WARNING = "called a synchronizing CUDA operation"
 SOURCES = ("histogram", "segreduce", "sketch", "flash_attention", "segment_matmul")
-# The bound of each timed shape is the larger of its bytes (each input read
-# once, each output written once) over the H100 SXM's memory rate and its
-# operations over the peak for their type.  For the histogram, segment max,
+# The bound of each timed shape is the larger of its bytes (each input the
+# function needs read once, each output written once: rows whose id is out
+# of range and keys outside every query's window are not needed) over the
+# H100 SXM's memory rate and its operations over the peak for their type.  For the histogram, segment max,
 # Count-Min and segment sum, one add or compare per row or element would
 # take n / 67e12 s at the float32 peak, far less than the bytes; attention's
 # products count at the dense bf16 tensor-core peak.
@@ -287,6 +337,15 @@ SERVE_TOL = 0.025
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+_PHASE_STARTS = {}
+
+
+def _phase(n: int, title: str) -> None:
+    """Logs phase ``n``'s header and notes when it began."""
+    _PHASE_STARTS[n] = time.perf_counter()
+    log(f"\n== phase {n}: {title}")
 
 
 def card_line() -> str:
@@ -1314,11 +1373,7 @@ def stream_engine(dev, capture, ref):
         check_scalars("stream_both", snap)
         if verify_sketch(snap.sketch, ref):
             raise AssertionError("stream_both: a sketch estimate is outside its bound")
-        syncs = {}
-        for w in caught:
-            if SYNC_WARNING in str(w.message):
-                site = f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
-                syncs[site] = syncs.get(site, 0) + 1
+        syncs = _sync_sites(caught)
         ss = steady_state(timings)
         summary["both"] = {"steady_batch_s": ss["batch_s"],
                            "steady_packets_per_s": ss["packets_per_s"],
@@ -2018,14 +2073,23 @@ def _visible_keys(lq, lkv, causal, window):
     return total
 
 
+def _key_span(lq, lkv, window):
+    """Keys that some query sees, under end alignment: from the first
+    query's oldest visible key to the newest key, which the last query
+    sees, causal or not."""
+    return lkv - (max(0, lkv - lq - window + 1) if window else 0)
+
+
 def _attention_bound(q, k, v, causal, window):
     """(ms, "operations" or "bytes"): 4 * D flops per query-key pair (QK^T
-    and PV) at the bf16 tensor-core peak, against q, k, v read once and o
-    written once at the memory rate."""
+    and PV) at the bf16 tensor-core peak, against q and o moved once and
+    the k, v rows that some query sees (:func:`_key_span`: a window leaves
+    the older keys unread) read once, at the memory rate."""
     b, hq, lq, d = q.shape
     lkv = k.shape[2]
     flops = 4 * b * hq * d * _visible_keys(lq, lkv, causal, window)
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    span = _key_span(lq, lkv, window)
+    nbytes = (2 * q.numel() + (k.numel() + v.numel()) // lkv * span) * q.element_size()
     t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -2178,6 +2242,42 @@ def check_attention(dev):
     timed("w: bf16 q (1, 32, 8192, 128), k/v (1, 8, 8192, 128), causal, window 4096",
           q, k, v, True, 4096)
     del q, k, v
+
+    # (a7) arctic-480b prefill (phase 13): 2 x 2,048 tokens, 56 query heads
+    # on 8 kv heads, a GQA group of 7
+    q, k, v = rnd(bf16, 2, 56, 2048, 128), rnd(bf16, 2, 8, 2048, 128), rnd(bf16, 2, 8, 2048, 128)
+    want = compare("(a7) arctic prefill, B 2, 56/8 heads (group 7), L 2048, D 128, "
+                   "causal", q, k, v, True)
+    control("(a7)", q, k, v, True, None, want)
+    timed("a7: bf16 q (2, 56, 2048, 128), k/v (2, 8, 2048, 128), causal", q, k, v, True)
+    del q, k, v, want
+    # (a7-d) arctic decode: the group's 7 heads packed in one decode tile
+    # against a cut of a 2,080-slot cache; a chunk of 2 queries, 14 rows
+    cache = rnd(bf16, 2, 2, 8, 2080, 128)
+    kc, vc = cache[0][:, :, :2070], cache[1][:, :, :2070]
+    q1 = rnd(bf16, 2, 1, 56, 128).transpose(1, 2)
+    want = compare("(a7-d) arctic decode, lq 1, group 7, lkv 2,070 of 2,080 slots",
+                   q1, kc, vc, True)
+    control("(a7-d)", q1, kc, vc, True, None, want)
+    timed("a7-d: bf16 q (2, 56, 1, 128), k/v views (2, 8, 2070, 128) of a 2,080-slot "
+          "cache", q1, kc, vc, True, forced="prefill")
+    compare("(a7-c2) arctic, a chunk of 2 queries (14 packed rows), lkv 2,070",
+            rnd(bf16, 2, 2, 56, 128).transpose(1, 2), kc, vc, True)
+    del cache, kc, vc, want
+    # (w-d) mixtral decode past its window (phase 13): one query against
+    # 6,145 and 6,176 of 6,176 slots, window 4,096: the decode path cuts the
+    # band (pos - 4096, pos] of the cache
+    cache = rnd(bf16, 2, 2, 8, 6176, 128)
+    q1 = rnd(bf16, 2, 1, 32, 128).transpose(1, 2)
+    for n in (6145, 6176):
+        want = compare(f"(w-d) mixtral decode, window 4096, lkv {n} of 6,176 slots",
+                       q1, cache[0][:, :, :n], cache[1][:, :, :n], True, 4096)
+        control(f"(w-d) lkv {n}", q1, cache[0][:, :, :n], cache[1][:, :, :n], True,
+                4096, want)
+    timed("w-d: bf16 q (2, 32, 1, 128), k/v views (2, 8, 6175, 128) of a 6,176-slot "
+          "cache, window 4096", q1, cache[0][:, :, :6175], cache[1][:, :, :6175], True,
+          4096, forced="prefill")
+    del cache, want
     torch.cuda.empty_cache()
 
     # edge cases, float32 (the CUDA-core kernel) and bfloat16 (the prefill
@@ -2275,7 +2375,7 @@ def check_segment_sum(dev):
     one = torch.zeros(1, device=dev)
     launch_ms = device_time_ms(lambda: one.add_(1))  # a launch's own cost
     for regime in GNN_REGIMES:
-        n, _, d, segs, _ = GNN_REGIMES[regime]
+        n, real, d, segs, _ = GNN_REGIMES[regime]
         plan = plan_segment_sum(n, d, segs, sms)
         way = "partitioned" if plan.parts else "direct"
         # integer-valued messages: float sums exact in any order
@@ -2309,7 +2409,8 @@ def check_segment_sum(dev):
                       .index_add_(0, torch.where(recv < segs, recv, segs).long(),
                                   msgs)[:segs]),
             "one_element_add_device_ms": launch_ms,
-            "bound_ms": (4 * n * d + 4 * n + 4 * segs * d) / HBM_BYTES_PER_S * 1e3,
+            # the real edges' rows (the padding's are dropped), every id
+            "bound_ms": (4 * real * d + 4 * n + 4 * segs * d) / HBM_BYTES_PER_S * 1e3,
         })
         del msgs, recv
         torch.cuda.empty_cache()
@@ -2361,10 +2462,24 @@ def segment_reduce_path(dev) -> dict:
     return launches
 
 
-def _greedy_run(model, tokens, cache, forced=None):
+def _sync_sites(caught) -> dict:
+    """Host syncs among recorded warnings, by source line."""
+    syncs = {}
+    for w in caught:
+        if SYNC_WARNING in str(w.message):
+            site = f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+            syncs[site] = syncs.get(site, 0) + 1
+    return syncs
+
+
+def _greedy_run(model, tokens, cache, forced=None, syncs=None):
     """Prefill then SERVE_STEPS greedy decode steps; ``forced`` replaces the
-    model's own tokens.  Returns (logits per call, tokens fed, prefill s,
-    decode s), synchronized."""
+    model's own tokens.  With ``syncs`` (a dict), the decode steps run
+    under ``set_sync_debug_mode("warn")`` and their host syncs are counted
+    into it by source line.  Returns (logits per call, tokens fed, prefill
+    s, decode s), synchronized."""
+    import warnings
+
     import torch
 
     torch.cuda.synchronize()
@@ -2373,12 +2488,21 @@ def _greedy_run(model, tokens, cache, forced=None):
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     out, fed = [logits.float()], []
-    for i in range(SERVE_STEPS):
-        nxt = logits.argmax(-1) if forced is None else forced[i]
-        fed.append(nxt)
-        logits, cache = model.decode_step(nxt, cache)
-        out.append(logits.float())
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if syncs is not None:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for i in range(SERVE_STEPS):
+                nxt = logits.argmax(-1) if forced is None else forced[i]
+                fed.append(nxt)
+                logits, cache = model.decode_step(nxt, cache)
+                out.append(logits.float())
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+    if syncs is not None:
+        syncs.update(_sync_sites(caught))
     return torch.stack(out), torch.stack(fed), t1 - t0, time.perf_counter() - t1
 
 
@@ -2412,10 +2536,10 @@ def serve_granite(dev):
     from repro_torch.configs import granite_8b
     from repro_torch.models.transformer import Transformer
 
-    cfg = dataclasses.replace(granite_8b.full_config(), attn_backend="cuda")
+    cfg = dataclasses.replace(granite_8b.full_config(), kernel_backend="cuda")
     t0 = time.perf_counter()
     model = Transformer(cfg, device=dev, seed=SEED)
-    plain_model = Transformer(dataclasses.replace(cfg, attn_backend="torch"),
+    plain_model = Transformer(dataclasses.replace(cfg, kernel_backend="torch"),
                               weights=dict(model.named_parameters()))
     torch.cuda.synchronize()
     log(f"[serve] {cfg.name}: {cfg.n_params:,} parameters drawn on the card in "
@@ -2633,11 +2757,7 @@ def _train_run(trainer, state, vocab, n_steps, start=0, sync_steps=()):
     end.record()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    syncs = {}
-    for w in caught:
-        if SYNC_WARNING in str(w.message):
-            site = f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
-            syncs[site] = syncs.get(site, 0) + 1
+    syncs = _sync_sites(caught)
     walls = [a.elapsed_time(b) for a, b in zip(events, events[1:] + [end])]
     return walls, wall, syncs
 
@@ -2668,7 +2788,7 @@ def train_minicpm(dev, workdir: str):
     from repro_torch.configs import minicpm_2b
 
     summary = {"attention_function": check_attention_training(dev)}
-    cfg = dataclasses.replace(minicpm_2b.full_config(), attn_backend="cuda")
+    cfg = dataclasses.replace(minicpm_2b.full_config(), kernel_backend="cuda")
     launches = {}
 
     # (b) the kernel run: host syncs counted in the steps that do not log
@@ -2708,7 +2828,7 @@ def train_minicpm(dev, workdir: str):
     # kernel path with a planted fault
     runs = {}
     for name, run_cfg, fault in (
-            ("plain", dataclasses.replace(cfg, attn_backend="torch"), None),
+            ("plain", dataclasses.replace(cfg, kernel_backend="torch"), None),
             ("control", cfg, _own_key_dropped)):
         trainer, state, losses = _trainer(run_cfg, dev, SEED)
         with fault() if fault else contextlib.nullcontext():
@@ -2981,8 +3101,13 @@ def check_segment_functions(dev) -> dict:
                     0, idx, x, reduce="amax")[:segs]
             fwd_bwd = lambda f: lambda: torch.autograd.grad(f(), x, up)  # noqa: E731
             kern = fwd_bwd(lambda: segment_reduce(x, recv, segs, op=op, backend="cuda"))
-            nbytes = (2 * 4 * n * d + 2 * 4 * n + 2 * 4 * segs * d
-                      + (4 * n * d + 4 * segs * d if op == "max" else 0))
+            # forward: the real edges' rows and every id read, the sums
+            # written; backward: every id and the upstream gradient read,
+            # every row's gradient written (a max also reads the real rows
+            # and its output)
+            real = GNN_REGIMES[regime][1]
+            nbytes = (4 * real * d + 4 * n * d + 2 * 4 * n + 2 * 4 * segs * d
+                      + (4 * real * d + 4 * segs * d if op == "max" else 0))
             rec.update({
                 "fwd_bwd_ms": time_ms(kern),
                 "fwd_bwd_device_ms": device_time_ms(kern),
@@ -3171,11 +3296,7 @@ def _gnn_run(config, shape, graph, batch, dev, steps, backend, sync_steps=()):
     end = torch.cuda.Event(enable_timing=True)
     end.record()
     torch.cuda.synchronize()
-    syncs = {}
-    for w in caught:
-        if SYNC_WARNING in str(w.message):
-            site = f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
-            syncs[site] = syncs.get(site, 0) + 1
+    syncs = _sync_sites(caught)
     walls = [a.elapsed_time(b) for a, b in zip(events, events[1:] + [end])]
     return walls, [x.item() for x in losses], outputs, syncs
 
@@ -3415,6 +3536,553 @@ def train_gnns(dev):
     return launches, summary
 
 
+# MoE serving (phase 13): two requests a model, prefill, then SERVE_STEPS
+# greedy decode steps.  mixtral-8x7b at full width cut to 8 of its 32 layers
+# (23.7 GB of bf16 weights; 32 would be 93 GB, and the plain path's float32
+# attention buffers, 29 GB a layer at 6,144 tokens, must fit beside them),
+# prompts of 6,144 tokens, past its 4,096-key window; arctic-480b at full
+# width cut to 2 of its 35 layers (55.4 GB: 27.2 GB a layer, 128 experts
+# and the dense residual), prompts of 2,048.  config -> (layers, prompt)
+MOE_BATCH = 2
+MOE_MODELS = {"mixtral_8x7b": (8, 6144), "arctic_480b": (2, 2048)}
+# Relative L2 error of the kernel path's last-token logits against the
+# plain path's at each of the 33 calls, the plain path routed as the kernel
+# path routed (its expert picks forced, its gates its own).  The attention
+# kernel rounds P to bf16 before P V where the plain version keeps float32:
+# on an H100, 0.0140-0.0195 (mixtral, 8 layers) and 0.0107-0.0156 (arctic,
+# 2 layers).  Left free, a router near-tie sends a token to another expert
+# on one path only, and with random weights such a flip moves a request's
+# logits by up to 0.65 (a token's expert output replaced, the capacity's
+# cut moved): the free run's error and the share of (token, layer) picks on
+# which the two paths agree (96-97 %) are printed, not held.  A control
+# that adds every live combine row to the next token gives 0.89 and more
+# (0.187 at the batched dispatch's prefill; PERF.md, section 6); the limit
+# lies between the two and the control must exceed it at every call.
+MOE_SERVE_TOL = 0.04
+# the MoE combine's shapes, phase 13 (c): (rows = experts x capacity,
+# width, tokens)
+COMBINE_SHAPES = {
+    "mixtral prefill": (8 * 3848, 4096, MOE_BATCH * 6144),
+    "arctic prefill": (128 * 88, 7168, MOE_BATCH * 2048),
+    "mixtral decode": (8 * 8, 4096, MOE_BATCH),
+    "arctic decode": (128 * 8, 7168, MOE_BATCH),
+}
+
+
+@contextlib.contextmanager
+def _moe_record(forced=None):
+    """Records each MoE layer call's top-k picks (``moe.route``) and dropped
+    rows (``moe.moe_apply_grouped``), device tensors in call order.  With
+    ``forced`` (another run's recorded picks, in the same call order) each
+    call routes to those experts, its gates the softmax of its own logits
+    there."""
+    import torch
+    from repro_torch.models import moe
+
+    route, grouped = moe.route, moe.moe_apply_grouped
+    rec = {"picks": [], "dropped": []}
+    queue = None if forced is None else list(forced)
+
+    def routed(*args, **kw):
+        out = route(*args, **kw)
+        if queue is not None:
+            logits, _, top_e = out
+            top_e = queue.pop(0).reshape(top_e.shape)
+            gates = torch.softmax(torch.gather(logits, -1, top_e), dim=-1)
+            out = (logits, gates.to(out[1].dtype), top_e)
+        rec["picks"].append(out[2].reshape(-1, out[2].shape[-1]))
+        return out
+
+    def applied(*args, **kw):
+        out, metrics = grouped(*args, **kw)
+        rec["dropped"].append(metrics["dropped_tokens"])
+        return out, metrics
+
+    moe.route, moe.moe_apply_grouped = routed, applied
+    try:
+        yield rec
+    finally:
+        moe.route, moe.moe_apply_grouped = route, grouped
+
+
+@contextlib.contextmanager
+def _combine_shifted():
+    """Phase 13's planted fault: the combine adds every live row to the next
+    token (the last token's rows fall out of range and are dropped)."""
+    import torch
+    from repro_torch.models import moe
+
+    segment_reduce = moe.segment_reduce
+
+    def shifted(x, ids, n, **kw):
+        return segment_reduce(x, torch.where(ids < n, ids + 1, ids), n, **kw)
+
+    moe.segment_reduce = shifted
+    try:
+        yield
+    finally:
+        moe.segment_reduce = segment_reduce
+
+
+def _rel_rows(got, want):
+    """Relative L2 error of each last-token logits row: (call, request)."""
+    return (got - want).norm(dim=-1) / want.norm(dim=-1)
+
+
+def _route_agreement(a, b) -> dict:
+    """The share of (token, layer) top-k picks, as sets, on which two runs'
+    recorded picks agree: at the prefill and at the decode steps."""
+    import torch
+
+    out = {}
+    for name in ("prefill", "decode"):
+        same = total = 0
+        for x, y in zip(a, b):
+            if (x.shape[0] > MOE_BATCH) != (name == "prefill"):
+                continue
+            eq = (torch.sort(x, dim=-1).values == torch.sort(y, dim=-1).values).all(-1)
+            same += int(eq.sum())
+            total += eq.numel()
+        if total:
+            out[name] = {"agree": same, "total": total, "share": same / total}
+    return out
+
+
+def _moe_prefill(model, tokens):
+    """One prefill into a fresh cache: (last-token logits, s)."""
+    import torch
+
+    cache = model.init_kv_cache(tokens.shape[0], tokens.shape[1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = model.prefill(tokens, cache)
+    torch.cuda.synchronize()
+    return logits.float(), time.perf_counter() - t0
+
+
+def serve_moe(dev, config):
+    """Phase 13 (a), (b): ``config`` at full width and ``MOE_MODELS``'
+    depth through the attention and segment-sum kernels (once to warm up,
+    once counted, timed and recorded, with the decode steps' host syncs
+    counted), through the plain path on the same weights and tokens, and
+    with the combine shifted (the control); for mixtral also the prefill
+    with ``optimized_config()``'s batched dispatch against its own plain
+    path.  Returns (launches by run, summary)."""
+    import dataclasses
+    import importlib
+
+    import torch
+    from repro_torch.models.moe import _capacity
+    from repro_torch.models.transformer import Transformer
+
+    mod = importlib.import_module(f"repro_torch.configs.{config}")
+    n_layers, prompt = MOE_MODELS[config]
+    cfg = dataclasses.replace(mod.full_config(), n_layers=n_layers, kernel_backend="cuda")
+    t0 = time.perf_counter()
+    model = Transformer(cfg, device=dev, seed=SEED)
+    weights = dict(model.named_parameters())
+    plain_model = Transformer(dataclasses.replace(cfg, kernel_backend="torch"),
+                              weights=weights)
+    torch.cuda.synchronize()
+    weight_bytes = sum(w.numel() * w.element_size() for w in weights.values())
+    log(f"[moe] {cfg.name}: {n_layers} of {mod.full_config().n_layers} layers, "
+        f"{weight_bytes / 1e9:.2f} GB of bf16 weights drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s; {MOE_BATCH} x {prompt} prompt tokens "
+        f"(capacity {_capacity(MOE_BATCH * prompt, cfg.moe)} a prefill, "
+        f"{_capacity(MOE_BATCH, cfg.moe)} a decode step), {SERVE_STEPS} steps")
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    tokens = torch.randint(0, cfg.vocab, (MOE_BATCH, prompt), generator=g, device=dev)
+    slots = prompt + SERVE_STEPS
+    # warm-up: cuBLAS picks its kernels
+    _greedy_run(model, tokens, model.init_kv_cache(MOE_BATCH, slots))
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    syncs = {}
+    with _moe_record() as kernel_rec:  # the counted run's picks and drops
+        logits, fed, prefill_s, decode_s = _greedy_run(
+            model, tokens, model.init_kv_cache(MOE_BATCH, slots), syncs=syncs)
+    launches = {f"moe_{config}": read_launches()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    calls = n_layers * (1 + SERVE_STEPS)
+    want = {**{k: 0 for k in launches[f"moe_{config}"]},
+            "flash_attention": calls, "segment_matmul": calls}
+    if launches[f"moe_{config}"] != want:
+        raise AssertionError(f"{config}: launches {launches[f'moe_{config}']}, the "
+                             f"code implies {want}")
+    with _moe_record() as plain_rec:  # routed freely
+        free, _, plain_prefill_s, plain_decode_s = _greedy_run(
+            plain_model, tokens, plain_model.init_kv_cache(MOE_BATCH, slots), fed)
+    with _moe_record(forced=kernel_rec["picks"]):  # routed as the kernel path
+        plain, _, _, _ = _greedy_run(
+            plain_model, tokens, plain_model.init_kv_cache(MOE_BATCH, slots), fed)
+    with _combine_shifted():
+        faulty, _, _, _ = _greedy_run(model, tokens,
+                                      model.init_kv_cache(MOE_BATCH, slots), fed)
+    if not bool(torch.isfinite(logits).all()) or logits.shape != (
+            1 + SERVE_STEPS, MOE_BATCH, cfg.vocab):
+        raise AssertionError(f"{config}: logits {tuple(logits.shape)} not finite")
+    rel = _rel_rows(logits, plain).amax(dim=1)
+    rel_free = _rel_rows(logits, free).amax(dim=1)
+    ctrl = _rel_rows(faulty, plain).amax(dim=1)
+    dropped = torch.stack(kernel_rec["dropped"]).tolist()
+    summary = {
+        "layers": n_layers, "prompt": prompt, "batch": MOE_BATCH,
+        "weight_bytes": weight_bytes,
+        "prefill_s": prefill_s,
+        "prefill_tokens_per_s": MOE_BATCH * prompt / prefill_s,
+        "decode_ms_per_step": decode_s / SERVE_STEPS * 1e3,
+        "decode_tokens_per_s": MOE_BATCH * SERVE_STEPS / decode_s,
+        "plain_prefill_s": plain_prefill_s,
+        "plain_decode_ms_per_step": plain_decode_s / SERVE_STEPS * 1e3,
+        "max_memory_allocated_bytes": peak,
+        "decode_host_syncs": sum(syncs.values()), "decode_host_sync_sites": syncs,
+        "dropped_prefill": sum(dropped[:n_layers]),
+        "dropped_decode": sum(dropped[n_layers:]),
+        "routing_agreement": _route_agreement(kernel_rec["picks"], plain_rec["picks"]),
+        "free_logits_rel_l2_max": rel_free.max().item(),
+        "free_logits_rel_l2_by_call": [round(x, 6) for x in rel_free.tolist()],
+        "logits_rel_l2_max": rel.max().item(),
+        "logits_rel_l2_by_call": [round(x, 6) for x in rel.tolist()],
+        "control_rel_l2_min": ctrl.min().item(),
+        "control_rel_l2_by_call": [round(x, 6) for x in ctrl.tolist()],
+        "launches": launches[f"moe_{config}"],
+    }
+    failed = []
+    if rel.max().item() > MOE_SERVE_TOL:
+        failed.append(f"logits relative L2 error {rel.max().item()} above "
+                      f"{MOE_SERVE_TOL}")
+    if not ctrl.min().item() > MOE_SERVE_TOL:
+        failed.append(f"the control (combine shifted) is within {MOE_SERVE_TOL} at "
+                      "a call")
+    if syncs:
+        failed.append(f"host syncs in the decode steps: {syncs}")
+    del plain_model, plain, free, faulty
+    if config == "mixtral_8x7b":
+        # the reference's adopted variant: batched dispatch, capacity factor 1.0
+        bcfg = dataclasses.replace(mod.optimized_config(), n_layers=n_layers,
+                                   kernel_backend="cuda")
+        bmodel = Transformer(bcfg, weights=weights)
+        bplain = Transformer(dataclasses.replace(bcfg, kernel_backend="torch"),
+                             weights=weights)
+        _moe_prefill(bmodel, tokens)
+        reset_launches()
+        with _moe_record() as brec:
+            got, bs = _moe_prefill(bmodel, tokens)
+        launches["moe_mixtral_8x7b_batched"] = read_launches()
+        with _moe_record() as bfree:
+            freeb, bps = _moe_prefill(bplain, tokens)
+        with _moe_record(forced=brec["picks"]):
+            wantb, _ = _moe_prefill(bplain, tokens)
+        with _combine_shifted():
+            faultyb, _ = _moe_prefill(bmodel, tokens)
+        brel = _rel_rows(got, wantb).max().item()
+        bctrl = _rel_rows(faultyb, wantb).min().item()
+        summary["batched_prefill"] = {
+            "capacity": _capacity(prompt, bcfg.moe), "prefill_s": bs,
+            "prefill_tokens_per_s": MOE_BATCH * prompt / bs, "plain_prefill_s": bps,
+            "dropped": int(sum(x.item() for x in brec["dropped"])),
+            "routing_agreement": _route_agreement(brec["picks"], bfree["picks"]),
+            "free_logits_rel_l2_max": _rel_rows(got, freeb).max().item(),
+            "logits_rel_l2_max": brel, "control_rel_l2_min": bctrl,
+            "launches": launches["moe_mixtral_8x7b_batched"]}
+        if launches["moe_mixtral_8x7b_batched"] != {
+                **{k: 0 for k in launches["moe_mixtral_8x7b_batched"]},
+                "flash_attention": n_layers, "segment_matmul": n_layers}:
+            failed.append(f"batched prefill launches "
+                          f"{launches['moe_mixtral_8x7b_batched']}")
+        if not (brel <= MOE_SERVE_TOL < bctrl):
+            failed.append(f"batched prefill: logits {brel}, control {bctrl} "
+                          f"against {MOE_SERVE_TOL}")
+        del bmodel, bplain
+    log(f"[moe] {config} " + json.dumps(summary))
+    del model, weights
+    if failed:
+        raise AssertionError(f"{config}: " + "; ".join(failed))
+    return launches, summary
+
+
+def check_combine(dev):
+    """Phase 13 (c): the segment-sum kernel at the MoE combine's shapes, two
+    live rows a token in random slots, the other slots' ids out of range,
+    bf16 rows: the float32 sums equal the plain version's bit for bit (two
+    terms), and, cast to bf16, are compared with ``index_add_`` in bf16
+    (the reference's combine in the rows' type, its spill index inside the
+    call): bit-equal or not is reported.  Each timed by events and on the
+    device alone beside the bound (the live bf16 rows and every int32 id
+    read once, float32 sums written once).  Returns timed shape records."""
+    import torch
+    from repro_torch.kernels.ops import segment_reduce
+    from repro_torch.kernels.segment_matmul import plan_segment_sum, segment_matmul_cuda
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    shapes = []
+    for case, (n, d, t) in COMBINE_SHAPES.items():
+        ids = torch.full((n,), t, dtype=torch.int32, device=dev)
+        slots = torch.randperm(n, generator=g, device=dev)[:2 * t]
+        ids[slots] = torch.arange(t, device=dev, dtype=torch.int32).repeat_interleave(2)
+        x = torch.randn(n, d, generator=g, device=dev).to(torch.bfloat16)
+        kern = lambda: segment_matmul_cuda(x, ids, t)
+        plain = lambda: segment_reduce(x, ids, t, backend="torch")
+        library = lambda: torch.zeros(t + 1, d, dtype=x.dtype, device=dev).index_add_(
+            0, torch.where(ids < t, ids, t).long(), x)[:t]
+        got = kern()
+        same(f"(combine, {case}) float32 sums", got, plain())
+        lib = library()
+        bit_equal = torch.equal(got.to(torch.bfloat16), lib)
+        gap = (got.to(torch.bfloat16).float() - lib.float()).abs().max().item()
+        plan = plan_segment_sum(n, d, t, sms)
+        rec = {
+            "case": f"MoE combine, {case}: x bf16 ({n}, {d}), {2 * t} live rows, "
+                    f"into {t} tokens, {'partitioned' if plan.parts else 'direct'}",
+            **timings(kern, plain, library),
+            "with_cast_ms": time_ms(lambda: kern().to(torch.bfloat16)),
+            "bf16_bit_equal_to_index_add": bit_equal, "bf16_max_abs_gap": gap,
+            # the live rows' bf16 data, every id, the float32 sums: a row
+            # whose id is out of range is never read
+            "bound_ms": (2 * 2 * t * d + 4 * n + 4 * t * d) / HBM_BYTES_PER_S * 1e3,
+        }
+        log(f"  (combine, {case}) cast to bf16 {'bit-equal' if bit_equal else 'not bit-equal'}"
+            f" to index_add_ in bf16 (max gap {gap:.3g})")
+        shapes.append(rec)
+        del x, ids, got, lib
+    return shapes
+
+
+def serve_moe_phase(dev):
+    """Phase 13: (a) mixtral-8x7b, (b) arctic-480b, (c) the combine's
+    shapes.  Returns (launches by run, summary, combine shape records)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"device memory held at the phase's start: "
+        f"{torch.cuda.memory_allocated(dev):,} B")
+    launches, summary = {}, {}
+    for config in MOE_MODELS:
+        got, summary[config] = serve_moe(dev, config)
+        launches.update(got)
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("[moe (c)] the segment-sum kernel at the combine's shapes")
+    shapes = check_combine(dev)
+    for s in shapes:
+        log("  " + json.dumps(s))
+    return launches, summary, shapes
+
+
+# xDeepFM serving (phase 14): the published size, 39 tables of 38,190,000
+# rows in all, x (10 + 1) float32 (1.68 GB), drawn on the card; ids from
+# recsys_batches (Zipfian, modulo each field's vocabulary).  Relative L2
+# error of the port's outputs (click probabilities; retrieval scores)
+# against the reference's formulation written out plainly: the CIN sums
+# its products in another order, which moves a logit of about 0.05 by
+# float32 rounding, below the probability's resolution near 0.5 (on the
+# CPU at the published widths: 0.0 between the two, 4.2e-8 each against
+# float64); a control with one field's ids shifted by one must exceed the
+# limit.
+XDEEPFM_TOL = 1e-6
+XDEEPFM_SHAPES = ("serve_p99", "serve_bulk", "retrieval_cand")
+# rows of one pass of the plain CIN: its (B, H, H_k, D) float32
+# intermediate is 4 x 200 x 200 x 10 = 1.6 MB a row, 6.6 GB at 2^12
+XDEEPFM_PLAIN_CHUNK = 1 << 12
+BAGS, BAG_IDS = 65536, 39  # embedding_bag's bag shape
+
+
+def _xdeepfm_plain(params, cfg, ids, cand=None):
+    """xDeepFM's serve step written out plainly as the reference computes
+    it (``repro/models/recsys.py:115-151``), apart from ``models/recsys.py``:
+    each field's row by ``F.embedding``, the CIN contracted as its two
+    einsums in chunks of ``XDEEPFM_PLAIN_CHUNK`` rows, the MLP as ``x @ w +
+    b`` with ReLU between.  Click probabilities ``(B,)``, or with ``cand``
+    the scores of the mean field embedding ``(B, n_cand)``."""
+    import torch
+    import torch.nn.functional as F
+
+    b, m = ids.shape
+    embs = torch.stack([F.embedding(ids[:, i], params["tables"][f"f{i}"])
+                        for i in range(m)], dim=1)
+    if cand is not None:
+        return embs.mean(dim=1) @ cand.T
+    lin = sum(F.embedding(ids[:, i], params["linear"][f"f{i}"]) for i in range(m))
+    pooled = []
+    for s in range(0, b, XDEEPFM_PLAIN_CHUNK):
+        x0 = xk = embs[s:s + XDEEPFM_PLAIN_CHUNK]
+        parts = []
+        for w in params["cin"]:
+            xk = torch.einsum("bhjd,bjd->bhd", torch.einsum("bid,hij->bhjd", x0, w), xk)
+            parts.append(xk.sum(dim=-1))
+        pooled.append(torch.cat(parts, dim=-1))
+    cin = torch.cat(pooled) @ params["cin_out"]["w"]
+    x = embs.reshape(b, -1)
+    for i in range(len(params["mlp"])):
+        x = x @ params["mlp"][f"l{i}"]["w"] + params["mlp"][f"l{i}"]["b"]
+        if i < len(params["mlp"]) - 1:
+            x = torch.relu(x)
+    return torch.sigmoid((lin + cin + x)[:, 0] + params["bias"])
+
+
+def _bag_bound(got, want, abs_sum, k):
+    """|kernel - plain| of a bag sum (or mean) within the reordering bound:
+    2 (k + 1) 2^-24 sum|x| a bag (one more term for the mean's division).
+    Returns the largest |diff|."""
+    err = (got.double() - want.double()).abs()
+    if not bool((err <= 2 * (k + 1) * 2.0 ** -24 * abs_sum.double()).all()):
+        raise AssertionError(f"embedding_bag: max |diff| {err.max().item()} beyond "
+                             "the order bound")
+    return err.max().item()
+
+
+def serve_xdeepfm(dev):
+    """Phase 14: xDeepFM's three serve shapes at the published size through
+    the port and through :func:`_xdeepfm_plain`, each with a control; then
+    ``embedding_bag`` at a bag shape through the segment-sum kernel (its
+    launches counted) against its plain version, ``F.embedding_bag``,
+    ``index_add_`` and its bound.  Returns (launches by run, summary, timed
+    shape records, max |diff|)."""
+    import statistics
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import xdeepfm
+    from repro_torch.data.pipeline import recsys_batches
+    from repro_torch.kernels.ops import segment_reduce
+    from repro_torch.kernels.segment_matmul import segment_matmul_cuda
+    from repro_torch.models.recsys import CIN_CHUNK, embedding_bag, xdeepfm_init
+
+    cfg = xdeepfm.CFG
+    vocabs = cfg.field_vocabs()
+    t0 = time.perf_counter()
+    params = xdeepfm_init(torch.Generator(device=dev).manual_seed(SEED), cfg)
+    torch.cuda.synchronize()
+    table_bytes = sum(t.numel() * t.element_size() for part in ("tables", "linear")
+                      for t in params[part].values())
+    log(f"[xdeepfm] {sum(vocabs):,} table rows x ({cfg.embed_dim} + 1) float32, "
+        f"{table_bytes / 1e9:.3f} GB, drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    launches, summary, failed = {}, {}, []
+    for shape in XDEEPFM_SHAPES:
+        info = xdeepfm.SHAPES[shape]
+        t0 = time.perf_counter()
+        ids = torch.from_numpy(next(recsys_batches(info["batch"], cfg.n_sparse, vocabs,
+                                                   seed=SEED))["sparse_ids"]).to(dev)
+        ids_s = time.perf_counter() - t0
+        shifted = ids.clone()
+        shifted[:, 0] = (shifted[:, 0] + 1) % vocabs[0]
+        extra = ()
+        if shape == "retrieval_cand":
+            extra = (torch.randn(info["n_cand"], cfg.embed_dim, generator=g, device=dev),)
+        kern = xdeepfm.serve_fn(shape)
+        kern(params, ids, *extra)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        got = kern(params, ids, *extra)
+        torch.cuda.synchronize()
+        served = read_launches()
+        peak = torch.cuda.max_memory_allocated(dev)
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            kern(params, ids, *extra)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        plain = lambda: _xdeepfm_plain(params, cfg, ids, *extra)
+        if shape != "serve_bulk":  # warm-up; the bulk pass is 64 chunks
+            plain()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = plain()
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        faulty = kern(params, shifted, *extra)
+        rel = ((got - want).norm() / want.norm()).item()
+        ctrl = ((faulty - want).norm() / want.norm()).item()
+        rows = info["batch"] * info.get("n_cand", 1)
+        wall = statistics.median(walls)
+        summary[shape] = {
+            "batch": info["batch"], "ids_made_s": ids_s, "wall_s": wall,
+            "walls_s": walls, "plain_s": plain_s,
+            ("candidates_per_s" if shape == "retrieval_cand" else "rows_per_s"):
+                rows / wall,
+            "max_memory_allocated_bytes": peak, "output_shape": list(got.shape),
+            "rel_l2": rel, "max_abs_diff": (got - want).abs().max().item(),
+            "control_rel_l2": ctrl, "launches": served,
+        }
+        if shape == "serve_bulk":
+            summary[shape]["cin_chunks"] = -(-info["batch"] // CIN_CHUNK)
+        log(f"[xdeepfm] {shape} " + json.dumps(summary[shape]))
+        if any(served.values()):
+            failed.append(f"{shape}: launches {served}, the gathers imply none")
+        if not bool(torch.isfinite(got).all()) or not (rel <= XDEEPFM_TOL < ctrl):
+            failed.append(f"{shape}: relative L2 {rel}, control {ctrl}, limit "
+                          f"{XDEEPFM_TOL}")
+        del ids, shifted, extra, got, want, faulty
+        torch.cuda.empty_cache()
+    # embedding_bag at a bag shape: BAGS bags of BAG_IDS ids each in the
+    # largest field's table (10,000,000 x 10), uniform ids, every mode
+    tab = params["tables"]["f0"]
+    n, d = BAGS * BAG_IDS, tab.shape[1]
+    idx = torch.randint(0, tab.shape[0], (n,), generator=g, device=dev)
+    bags = (torch.arange(n, device=dev) // BAG_IDS).to(torch.int32)
+    w = torch.rand(n, generator=g, device=dev)
+    modes = (("sum", None), ("mean", None), ("sum", w))
+    reset_launches()  # the bag path: each mode once, counted
+    for mode, weights in modes:
+        embedding_bag(tab, idx, bags, BAGS, weights, mode, backend="cuda")
+    torch.cuda.synchronize()
+    launches["xdeepfm_embedding_bag"] = read_launches()
+    if launches["xdeepfm_embedding_bag"] != {
+            **{k: 0 for k in launches["xdeepfm_embedding_bag"]}, "segment_matmul": 4}:
+        failed.append(f"embedding_bag: launches {launches['xdeepfm_embedding_bag']}")
+    shapes, max_err = [], 0.0
+    for mode, weights in modes:
+        name = f"{mode}{'' if weights is None else ', weighted'}"
+        kern = lambda: embedding_bag(tab, idx, bags, BAGS, weights, mode, backend="cuda")
+        plain = lambda: embedding_bag(tab, idx, bags, BAGS, weights, mode,
+                                      backend="torch")
+        library = lambda: F.embedding_bag(
+            idx.view(BAGS, BAG_IDS), tab, mode=mode,
+            per_sample_weights=None if weights is None else weights.view(BAGS, BAG_IDS))
+        abs_sum = embedding_bag(tab.abs(), idx, bags, BAGS,
+                                None if weights is None else weights.abs(), mode,
+                                backend="torch")
+        want = plain()
+        max_err = max(max_err, _bag_bound(kern(), want, abs_sum, BAG_IDS))
+        _bag_bound(library(), want, abs_sum, BAG_IDS)
+        nbytes = n * d * 4 + n * 8 + n * 4 + BAGS * d * 4 + (0 if weights is None else n * 4)
+        shapes.append({
+            "case": f"embedding_bag {name}: table float32 {tuple(tab.shape)}, {BAGS} "
+                    f"bags of {BAG_IDS} uniform ids",
+            **timings(kern, plain, library),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+        log("  " + json.dumps(shapes[-1]))
+    # the segment-sum kernel alone on the gathered rows
+    x = tab.index_select(0, idx)
+    got = segment_matmul_cuda(x, bags, BAGS)
+    want = torch.zeros(BAGS, d, device=dev).index_add_(0, bags.long(), x)
+    max_err = max(max_err, _bag_bound(got, want, torch.zeros(BAGS, d, device=dev)
+                                      .index_add_(0, bags.long(), x.abs()), BAG_IDS))
+    shapes.append({
+        "case": f"embedding_bag's segment sum: x float32 ({n}, {d}), {BAGS} bags of "
+                f"{BAG_IDS} rows",
+        **timings(lambda: segment_matmul_cuda(x, bags, BAGS),
+                  lambda: segment_reduce(x, bags, BAGS, backend="torch"),
+                  lambda: torch.zeros(BAGS, d, device=dev).index_add_(
+                      0, bags.long(), x)),
+        "bound_ms": (n * d * 4 + n * 4 + BAGS * d * 4) / HBM_BYTES_PER_S * 1e3})
+    log("  " + json.dumps(shapes[-1]))
+    del params, tab, idx, bags, w, x
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("xdeepfm: " + "; ".join(failed))
+    return launches, summary, shapes, max_err
+
+
 def record(name, source, replaces, launches, max_err, shapes):
     head = shapes[0]
     rec = {
@@ -3442,10 +4110,10 @@ def main() -> int:
     log(f"card: {card}")
     log(f"context: {json.dumps(run_context())}")
 
-    log("\n== phase 1: build")
+    _phase(1, "build")
     build_kernels()
 
-    log("\n== phase 2: kernels against their plain versions")
+    _phase(2, "kernels against their plain versions")
     checks = {}
     for name, fn in (("histogram", check_histogram),
                      ("segment_max", check_segment_max), ("cms_update", check_cms)):
@@ -3454,18 +4122,17 @@ def main() -> int:
             log("  " + json.dumps(s))
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        log(f"\n== phase 3: main path, run_challenge at scale {SCALE}, "
+        _phase(3, f"main path, run_challenge at scale {SCALE}, "
             "then the sketch tier")
         main_launches, sketch_s, capture, ref, table3 = main_path(dev, workdir)
-        log(f"\n== phase 4: the graph-algorithm pass at scale {ALGO_SCALE}")
+        _phase(4, f"the graph-algorithm pass at scale {ALGO_SCALE}")
         algo_launches, alone_launches, algo_ms = algorithm_pass(dev, workdir)
 
-        log(f"\n== phase 5: the CLI with --algorithms --tier both, scale "
+        _phase(5, f"the CLI with --algorithms --tier both, scale "
             f"{CLI_SCALE}")
         cli_launches = cli_algorithms_and_sketch()
 
-        t0 = time.perf_counter()
-        log("\n== phase 6: attention and segment-sum kernels against their "
+        _phase(6, "attention and segment-sum kernels against their "
             "plain versions")
         for name, fn in (("flash_attention", check_attention),
                          ("segment_matmul", check_segment_sum)):
@@ -3474,37 +4141,36 @@ def main() -> int:
                 log("  " + json.dumps(s))
         segsum_launches = segment_reduce_path(dev)
         torch.cuda.empty_cache()
-        t1 = time.perf_counter()
-        log(f"\n== phase 7: LM serving, granite-8b at full size, {SERVE_BATCH} x "
+        _phase(7, f"LM serving, granite-8b at full size, {SERVE_BATCH} x "
             f"{SERVE_PROMPT} prompt tokens, {SERVE_STEPS} decode steps")
         serve_launches, serve = serve_granite(dev)
         torch.cuda.empty_cache()
-        t2 = time.perf_counter()
-        log(f"\n== phase 8: the streaming engine, phase 3's capture in "
+        _phase(8, f"the streaming engine, phase 3's capture in "
             f"micro-batches of {STREAM_BATCH:,} rows")
         stream_launches, stream = stream_engine(dev, capture, ref)
-        t3 = time.perf_counter()
-        log(f"\n== phase 9: the A/B baselines, the query surface and --fused "
+        _phase(9, f"the A/B baselines, the query surface and --fused "
             f"on phase 3's table (scale {SCALE})")
         ab_launches, ab = ab_baselines_and_fused(dev, workdir, table3, ref)
         del table3
-        t4 = time.perf_counter()
-        log(f"\n== phase 10: the fault-tolerant service on phase 3's capture "
+        _phase(10, f"the fault-tolerant service on phase 3's capture "
             f"({STREAM_BATCH:,}-row groups), then the serve CLI")
         serve_svc_launches, service = fault_tolerant_service(dev, capture, ref, card)
         del capture, ref
         torch.cuda.empty_cache()
-        t5 = time.perf_counter()
-        log(f"\n== phase 11: LM training, minicpm-2b at full size, {TRAIN_BATCH} x "
+        _phase(11, f"LM training, minicpm-2b at full size, {TRAIN_BATCH} x "
             f"{TRAIN_SEQ} tokens a step")
         train_launches, train = train_minicpm(dev, workdir)
-        t6 = time.perf_counter()
-        log("\n== phase 12: GNN training, the four archs at their published widths")
+        _phase(12, "GNN training, the four archs at their published widths")
         gnn_launches, gnn = train_gnns(dev)
-        log(f"phase 6 took {t1 - t0:.1f} s, phase 7 {t2 - t1:.1f} s, phase 8 "
-            f"{t3 - t2:.1f} s, phase 9 {t4 - t3:.1f} s, phase 10 "
-            f"{t5 - t4:.1f} s, phase 11 {t6 - t5:.1f} s, phase 12 "
-            f"{time.perf_counter() - t6:.1f} s")
+        _phase(13, "MoE serving, mixtral-8x7b and arctic-480b at full "
+            "width, then the combine's shapes")
+        moe_launches, moe, combine_shapes = serve_moe_phase(dev)
+        _phase(14, "xDeepFM serving at its published size, then "
+            "embedding_bag at a bag shape")
+        xdeepfm_launches, xdeepfm, bag_shapes, bag_err = serve_xdeepfm(dev)
+        starts = sorted(_PHASE_STARTS.items()) + [(None, time.perf_counter())]
+        log("phase walls (s): " + json.dumps({n: round(b - a, 1) for (n, a), (_, b)
+                                               in zip(starts, starts[1:])}))
 
     # launches of the main path's runs only; the algorithms timed alone and
     # the comparisons with the plain versions are counted nowhere
@@ -3512,7 +4178,8 @@ def main() -> int:
     launches = {**main_launches, "algorithms": algo_launches, "cli": cli_launches,
                 "segment_reduce": segsum_launches, "serve": serve_launches,
                 **stream_launches, **ab_launches, **serve_svc_launches,
-                **train_launches, **gnn_launches}
+                **train_launches, **gnn_launches, **moe_launches,
+                **xdeepfm_launches}
     hll_shape = [s for s in checks["segment_max"][1]
                  if s["case"].startswith(("h:", "h-"))]
     # phase 12 (a): the autograd Functions, forward + backward
@@ -3520,6 +4187,10 @@ def main() -> int:
         recs = [rec for key, rec in gnn["functions"].items() if key.startswith(op + "_")]
         checks[name] = (max([checks[name][0]] + [r["forward_max_abs_err"] for r in recs]),
                         checks[name][1] + recs)
+    # phases 13 (c) and 14: the combine's and the bag's shapes (the combine's
+    # float32 sums are bit-equal to the plain version's)
+    checks["segment_matmul"] = (max(checks["segment_matmul"][0], bag_err),
+                                checks["segment_matmul"][1] + combine_shapes + bag_shapes)
     kernels = [
         record("histogram", "src/repro_torch/kernels/csrc/histogram.cu",
                "src/repro/kernels/histogram.py:108",
@@ -3546,7 +4217,7 @@ def main() -> int:
     log(json.dumps({"sketch_tier_s": sketch_s, "algorithms_alone_ms": algo_ms,
                     "algorithms_alone_launches": alone_launches, "serve": serve,
                     "stream": stream, "ab_and_fused": ab, "service": service,
-                    "train": train, "gnn": gnn}))
+                    "train": train, "gnn": gnn, "moe": moe, "xdeepfm": xdeepfm}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,77 @@
+"""xdeepfm [arXiv:1803.05170]: 39 sparse fields, embed 10, CIN 200-200-200,
+MLP 400-400 — the port of ``repro/configs/xdeepfm.py``.
+
+Embedding tables are the hot path: 38,190,000 rows x (10 + 1) float32,
+1.68 GB, one gathered row per field and row (``models/recsys.py``; its
+``embedding_bag``, for bags of many ids, runs on the segment-sum kernel).  Shapes: train 65,536 / online
+512 / offline 262,144 / retrieval 1 x 10^6 (padded to 2^20).
+
+:func:`serve_fn` gives the serve step of each serve shape (``serve_p99``,
+``serve_bulk``: the click probabilities, the CIN in chunks of
+``recsys.CIN_CHUNK`` rows; ``retrieval_cand``: the scores of one query
+against the candidates).  The ``train_batch`` shape's step comes with the
+xDeepFM training slice; the reference's ``ArchSpec``, ``Cell`` and
+partition specs come with the launch slice.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..core.table import resolve_device
+from ..models.recsys import (XDeepFMConfig, bce_loss, retrieval_scores,
+                             xdeepfm_apply, xdeepfm_init)
+from ..train.optimizer import AdamWConfig
+
+ARCH_ID = "xdeepfm"
+
+SHAPES = {
+    "train_batch": dict(kind="train", batch=65_536),
+    "serve_p99": dict(kind="serve", batch=512),
+    "serve_bulk": dict(kind="serve", batch=262_144),
+    "retrieval_cand": dict(kind="serve", batch=1, n_cand=1_048_576,
+                           raw="n_candidates=1,000,000 (padded to 2^20)"),
+}
+
+CFG = XDeepFMConfig(name=ARCH_ID, n_sparse=39, embed_dim=10,
+                    cin_layers=(200, 200, 200), mlp_dims=(400, 400))
+
+OPT = AdamWConfig(lr=1e-3, schedule="cosine", total_steps=20_000,
+                  weight_decay=1e-5)
+
+
+def serve_fn(shape: str) -> Callable:
+    """The serve step of ``shape``: ``(params, ids) -> sigmoid(logits)``,
+    or for ``retrieval_cand`` ``(params, ids, cand) -> scores (1,
+    n_cand)``."""
+    if SHAPES[shape]["kind"] != "serve":
+        raise ValueError(f"{shape} is not a serve shape")
+    if shape == "retrieval_cand":
+        return lambda params, ids, cand: retrieval_scores(params, CFG, ids, cand)
+    return lambda params, ids: torch.sigmoid(xdeepfm_apply(params, CFG, ids))
+
+
+def smoke(device="cuda"):
+    """The reference's smoke test at its sizes (6 fields of 64 ids, embed 8,
+    CIN 16-16, MLP 32), weights drawn from seed 0 on ``device``, inputs
+    from numpy's seed 0: logits, a finite loss, retrieval scores."""
+    device = resolve_device(device)
+    cfg = XDeepFMConfig(name=ARCH_ID + "-smoke", n_sparse=6, embed_dim=8,
+                        cin_layers=(16, 16), mlp_dims=(32,),
+                        vocab_sizes=(64,) * 6)
+    params = xdeepfm_init(torch.Generator(device=device).manual_seed(0), cfg)
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(0, 64, (16, 6)).astype(np.int32)).to(device)
+    labels = torch.from_numpy(rng.integers(0, 2, 16).astype(np.float32)).to(device)
+    logits = xdeepfm_apply(params, cfg, ids)
+    loss = bce_loss(logits, labels)
+    if logits.shape != (16,) or bool(torch.isnan(loss)):
+        raise AssertionError(f"xdeepfm smoke: logits {tuple(logits.shape)}, "
+                             f"loss {loss}")
+    cand = torch.from_numpy(rng.standard_normal((256, 8)).astype(np.float32)).to(device)
+    scores = retrieval_scores(params, cfg, ids[:1], cand)
+    if scores.shape != (1, 256):
+        raise AssertionError(f"xdeepfm smoke: scores {tuple(scores.shape)}")
+    return {"loss": float(loss)}

@@ -20,9 +20,12 @@ from the reference's parameter pytree, so both compute with one set of
 weights; :func:`transformer_param_tree` is the other way, the model's own
 parameters in the reference's nested layout (what the port's trainer
 trains and checkpoints, so that a step either package writes restores in
-the other).  :func:`gnn_params_from_numpy` and :func:`gnn_params_to_numpy`
-carry a GNN's parameter tree (the reference's nested dicts and lists,
-which the port's models take as they are).  :func:`train_state_from_numpy`
+the other; a MoE layer's router, experts and dense residual included).
+:func:`gnn_params_from_numpy` and :func:`gnn_params_to_numpy` carry a
+GNN's parameter tree (the reference's nested dicts and lists, which the
+port's models take as they are); :func:`xdeepfm_params_from_numpy` and
+:func:`xdeepfm_params_to_numpy` are the same for xDeepFM's tree (tables,
+linear weights, CIN kernels, MLP, bias).  :func:`train_state_from_numpy`
 and :func:`train_state_to_numpy` carry a whole training state,
 ``{"params": ..., "opt": {"step", "m", "v"}}``, across both ways, a
 transformer's or a GNN's.
@@ -45,7 +48,8 @@ if TYPE_CHECKING:  # the model and training layers load only when used
 __all__ = ["table_from_numpy", "sketch_state_from_numpy", "results_to_numpy",
            "tensor_leaves", "transformer_params_from_numpy",
            "transformer_param_tree", "gnn_params_from_numpy",
-           "gnn_params_to_numpy", "train_state_from_numpy",
+           "gnn_params_to_numpy", "xdeepfm_params_from_numpy",
+           "xdeepfm_params_to_numpy", "train_state_from_numpy",
            "train_state_to_numpy"]
 
 
@@ -132,18 +136,27 @@ def _weight(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
 
 def _reference_paths(cfg: TransformerConfig) -> Dict[str, Tuple[str, ...]]:
     """Each port weight's path in the reference's parameter pytree
-    (``repro.models.transformer.init_params``)."""
+    (``repro.models.transformer.init_params``; a MoE layer's under
+    ``layers/moe``: ``router/w``, ``experts/{gate,up,down}/w`` and
+    ``dense_residual/{gate,up,down}/w``)."""
     paths = {
         "embed": ("embed", "table"),
         "attn_norm": ("layers", "attn_norm", "g"),
         "wq": ("layers", "wq", "w"), "wk": ("layers", "wk", "w"),
         "wv": ("layers", "wv", "w"), "wo": ("layers", "wo", "w"),
         "mlp_norm": ("layers", "mlp_norm", "g"),
-        "w_gate": ("layers", "mlp", "gate", "w"),
-        "w_up": ("layers", "mlp", "up", "w"),
-        "w_down": ("layers", "mlp", "down", "w"),
         "final_norm": ("final_norm", "g"),
     }
+    swiglu = ("gate", "up", "down")
+    if cfg.moe is None:
+        paths.update({f"w_{k}": ("layers", "mlp", k, "w") for k in swiglu})
+    else:
+        paths["router"] = ("layers", "moe", "router", "w")
+        paths.update({f"expert_{k}": ("layers", "moe", "experts", k, "w")
+                      for k in swiglu})
+        if cfg.moe.dense_residual_d_ff:
+            paths.update({f"residual_{k}": ("layers", "moe", "dense_residual", k, "w")
+                          for k in swiglu})
     if cfg.qkv_bias:
         paths.update(bq=("layers", "wq", "b"), bk=("layers", "wk", "b"),
                      bv=("layers", "wv", "b"))
@@ -218,6 +231,11 @@ def gnn_params_to_numpy(tree):
     return tree_unflatten(treedef, [
         x.detach().to(torch.float32 if x.dtype == torch.bfloat16 else x.dtype)
         .cpu().numpy() for x in leaves])
+
+
+# xDeepFM's tree is nested dicts and lists too, carried the same way
+xdeepfm_params_from_numpy = gnn_params_from_numpy
+xdeepfm_params_to_numpy = gnn_params_to_numpy
 
 
 def train_state_from_numpy(tree: Mapping, cfg: Optional[TransformerConfig] = None,

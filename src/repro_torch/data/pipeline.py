@@ -1,12 +1,13 @@
-"""Host batches — the port's copies of ``Prefetcher`` and ``lm_batches``
-from ``repro/data/pipeline.py`` (``recsys_batches`` comes with the recsys
-slice), and ``PinnedStager``, which carries them to the card.
+"""Host batches — the port's copies of ``Prefetcher``, ``lm_batches`` and
+``recsys_batches`` from ``repro/data/pipeline.py``, and ``PinnedStager``,
+which carries them to the card.
 
 A ``Prefetcher``'s producer thread keeps ``depth`` batches ahead of the
 consumer, so host reads overlap device work; a producer's exception is
 re-raised in the consumer on its next ``__next__``.  ``lm_batches`` is the
-deterministic synthetic LM stream, bit-equal to the reference's for every
-``(seed, step, shard)``.
+deterministic synthetic LM stream and ``recsys_batches`` the synthetic CTR
+stream, each bit-equal to the reference's for every ``(seed, step,
+shard)``.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["PinnedStager", "Prefetcher", "lm_batches"]
+__all__ = ["PinnedStager", "Prefetcher", "lm_batches", "recsys_batches"]
 
 
 class PinnedStager:
@@ -215,4 +216,28 @@ def lm_batches(
         toks[:, 2::2] = toks[:, 1:-1:2]
         yield {"tokens": toks[:, :-1], "labels": toks[:, 1:],
                "step": np.int64(step), "shard": np.int64(shard_id)}
+        step += 1
+
+
+def recsys_batches(
+    batch: int,
+    n_sparse: int,
+    vocab_sizes,
+    seed: int = 0,
+    shard_id: int = 0,
+    start_step: int = 0,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Synthetic CTR stream with a planted logistic teacher (learnable):
+    Zipfian ids modulo each field's vocabulary, labels drawn from the
+    teacher's probability."""
+    vocab_sizes = np.asarray(vocab_sizes, np.int64)
+    teacher_rng = np.random.default_rng(seed + 7919)
+    field_w = teacher_rng.standard_normal(n_sparse).astype(np.float32)
+    step = start_step
+    while True:
+        rng = np.random.default_rng((seed, step, shard_id))
+        ids = (rng.zipf(1.2, size=(batch, n_sparse)) % vocab_sizes[None, :]).astype(np.int32)
+        score = ((ids % 97) / 97.0 - 0.5) @ field_w
+        labels = (rng.random(batch) < 1 / (1 + np.exp(-score))).astype(np.float32)
+        yield {"sparse_ids": ids, "labels": labels, "step": np.int64(step)}
         step += 1

@@ -17,9 +17,11 @@ Runs on the card unless ``--device cpu``; without a card it raises.  On
 the card attention runs through the kernel, which takes heads of 32, 64
 and 128; the smoke configs' heads are 8, so on the card ``--d-head`` must
 name one of those (the header line states it) or the run exits 2.  On the
-CPU attention runs through the plain version.  The reference's MoE archs
-(``mixtral-8x7b``, ``arctic-480b``) are not ported (ROADMAP queue 1 item
-11) and exit 2.
+CPU attention runs through the plain version.  The MoE archs
+(``mixtral-8x7b``, ``arctic-480b``) train through the same ``loss_fn``,
+with the auxiliary load-balancing term in the loss (``moe_aux_loss`` and
+``moe_dropped`` on the log lines); their combine runs on the segment-sum
+kernel on the card.
 Unlike the reference, a run that resumes at or past ``--steps`` reports
 that and exits 0 (the reference reads the last step's loss, which such a
 run never logs, and raises).
@@ -31,8 +33,6 @@ import dataclasses
 import importlib
 import sys
 import time
-
-MOE_ARCHS = ("mixtral-8x7b", "arctic-480b")
 
 
 def smoke_config(arch: str, d_head=None):
@@ -54,7 +54,7 @@ def train_lm(arch: str, steps: int, ckpt_dir, batch: int, seq: int,
 
     device = resolve_device(device)
     attn = "cuda" if device.type == "cuda" else "torch"
-    cfg = dataclasses.replace(smoke_config(arch, d_head), attn_backend=attn)
+    cfg = dataclasses.replace(smoke_config(arch, d_head), kernel_backend=attn)
     opt = AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=max(steps, 2),
                       schedule="wsd" if arch == "minicpm-2b" else "cosine")
 
@@ -104,10 +104,6 @@ def main(argv=None) -> int:
                     help="head size in place of the smoke config's; on the "
                          "card one the attention kernel takes (32, 64, 128)")
     args = ap.parse_args(argv)
-    if args.arch in MOE_ARCHS:
-        print(f"{args.arch}: mixture-of-experts layers are not ported yet "
-              "(ROADMAP queue 1 item 11, MoE)", file=sys.stderr)
-        return 2
     from ..core.table import resolve_device
     from ..kernels.flash_attention import HEAD_DIMS
 

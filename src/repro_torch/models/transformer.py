@@ -1,6 +1,7 @@
-"""The dense decoder-only transformer — the port of
-``repro/models/transformer.py`` for qwen2, minicpm and granite: training
-(``forward`` with autograd, remat, :func:`loss_fn`) and serving.
+"""The decoder-only transformer, dense and mixture-of-experts — the port of
+``repro/models/transformer.py`` for qwen2, minicpm, granite, mixtral and
+arctic: training (``forward`` with autograd, remat, :func:`loss_fn`) and
+serving.
 
 :class:`Transformer` holds the weights (layers stacked on a leading
 ``n_layers`` axis, as the reference's pytree holds them) and computes
@@ -11,7 +12,11 @@ reference's names and semantics; :func:`loss_fn` is the reference's.
 marks them); serving runs under ``torch.no_grad``.  With ``cfg.remat``
 each layer of a differentiated forward runs under
 ``torch.utils.checkpoint`` (:func:`_remat`), the counterpart of
-``_remat_wrap`` around the reference's scanned body.  Differences:
+``_remat_wrap`` around the reference's scanned body.  A config with
+``moe`` set takes the reference's MoE branch in place of the SwiGLU
+(``transformer.py:272-285``, :mod:`.moe`): ``"global"`` dispatch over the
+call's ``B x L`` tokens, ``"batched"`` one dispatch per sequence; serving
+routes the whole step's tokens, as the reference's does.  Differences:
 
 * the KV cache is written in place (the reference returns new arrays), and
   its ``pos`` is a Python int;
@@ -19,9 +24,14 @@ each layer of a differentiated forward runs under
   written so far, a strided view that the attention kernel reads where it
   lies.  With the query and key ranges' ends aligned, that is exactly the
   reference's ``"xla"`` path (``_gqa_chunked``, which masks the unwritten
-  slots by position).  The reference's ``"pallas"`` path hands the kernel
-  the whole static cache and attends to unwritten zero slots whenever the
-  cache is longer than what was written (ROADMAP queue 3 item 6).
+  slots by position), a sliding window included: each query keeps the
+  keys in ``(pos - window, pos]`` of the cut.  The reference's
+  ``"pallas"`` path hands the kernel the whole static cache and attends to
+  unwritten zero slots whenever the cache is longer than what was written
+  (ROADMAP queue 3 item 6);
+* ``forward`` returns the logits; :meth:`~Transformer.forward_with_metrics`
+  returns them with the reference's metrics (the MoE auxiliary loss summed
+  over the layers and the dropped rows, zeros for a dense model).
 """
 from __future__ import annotations
 
@@ -36,8 +46,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..core.table import resolve_device
 from ..kernels.ops import attention
+from . import moe as moe_layer
 from .layers import (cross_entropy_loss, dense, dense_init, embedding_init,
                      rmsnorm, swiglu)
+from .moe import MoEConfig
 
 __all__ = ["TransformerConfig", "Transformer", "weight_shapes", "loss_fn"]
 
@@ -51,10 +63,11 @@ class TransformerConfig:
     constraint), ``attn_chunk`` and ``attn_mixed_precision`` (the shape and
     precision of ``_gqa_chunked``).  ``remat_policy`` is ``"nothing"`` (a
     layer saves only its input) or ``"dots"`` (it also saves its matrix
-    products, as ``dots_with_no_batch_dims_saveable``).  ``attn_backend``
-    is the port's ``auto|torch|cuda`` (``kernels/ops.py``).  ``moe`` set
-    raises in :class:`Transformer`: the mixture-of-experts layers are not
-    ported yet.
+    products, as ``dots_with_no_batch_dims_saveable``).  The reference's
+    ``attn_backend`` is ``kernel_backend`` here, the port's
+    ``auto|torch|cuda`` (``kernels/ops.py``) for every kernel of the
+    decoder: the attention kernel and the MoE combine's segment sum, or
+    their plain versions.
     """
     name: str
     n_layers: int
@@ -66,26 +79,42 @@ class TransformerConfig:
     d_head: Optional[int] = None          # default d_model // n_heads
     qkv_bias: bool = False                # qwen2
     sliding_window: Optional[int] = None  # mixtral
-    moe: Optional[Any] = None
+    moe: Optional[MoEConfig] = None
     rope_theta: float = 10000.0
     tie_embeddings: bool = False          # minicpm
     dtype: torch.dtype = torch.bfloat16
     remat: bool = True
     remat_policy: str = "nothing"         # "nothing" | "dots" — what remat saves
-    attn_backend: str = "auto"            # "auto" | "torch" | "cuda"
+    kernel_backend: str = "auto"          # "auto" | "torch" | "cuda"
 
     @property
     def head_dim(self) -> int:
         return self.d_head or self.d_model // self.n_heads
 
-    @property
-    def n_params(self) -> int:
-        """Total parameter count (the reference's, dense)."""
+    def _count(self, experts: int) -> int:
+        """Parameters with ``experts`` expert FFNs a layer (the reference's
+        formulas, ``transformer.py:76-103``)."""
         d, dh = self.d_model, self.head_dim
         attn = d * dh * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * dh * d
-        per_layer = attn + 3 * d * self.d_ff + 2 * d
+        if self.moe:
+            ff = 3 * d * self.moe.d_ff * experts + d * self.moe.n_experts
+            if self.moe.dense_residual_d_ff:
+                ff += 3 * d * self.moe.dense_residual_d_ff
+        else:
+            ff = 3 * d * self.d_ff
+        per_layer = attn + ff + 2 * d
         embed = self.vocab * d * (1 if self.tie_embeddings else 2)
         return self.n_layers * per_layer + embed + d
+
+    @property
+    def n_params(self) -> int:
+        """Total parameter count (for 6 N D roofline accounting)."""
+        return self._count(self.moe.n_experts if self.moe else 0)
+
+    @property
+    def n_active_params(self) -> int:
+        """Parameters a token touches (MoE: its ``top_k`` experts only)."""
+        return self._count(self.moe.top_k if self.moe else 0)
 
 
 def _rope_tables(positions: torch.Tensor, d: int, theta: float
@@ -133,14 +162,15 @@ def _remat(cfg: TransformerConfig, block, *args):
 
 
 class Transformer(nn.Module):
-    """A dense decoder's weights on one device, and its functions.
+    """A decoder's weights on one device, and its functions.
 
     ``weights`` (named and shaped as :func:`weight_shapes` says, as
     ``convert.transformer_params_from_numpy`` builds them) are taken as
     they are; without them every weight is drawn on ``device`` by a
     ``torch.Generator`` seeded with ``seed``, with the reference's
-    initialisers: dense weights normal times ``1 / sqrt(d_in)``, the
-    embedding normal times 0.02, norm gains ones, biases zeros.  A full
+    initialisers: dense weights (the router and each expert's included)
+    normal times ``1 / sqrt(d_in)``, the embedding normal times 0.02, norm
+    gains ones, biases zeros.  A full
     model's weights are drawn on the card, never on the host.  The weights
     do not require grad until a trainer marks them
     (``Trainer.init_state``).
@@ -149,10 +179,6 @@ class Transformer(nn.Module):
     def __init__(self, cfg: TransformerConfig, *, device="cuda", seed: int = 0,
                  weights: Optional[Dict[str, torch.Tensor]] = None):
         super().__init__()
-        if cfg.moe is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: mixture-of-experts layers are not ported yet "
-                "(ROADMAP queue 1 item 11, MoE)")
         self.cfg = cfg
         if weights is None:
             weights = _draw_weights(cfg, resolve_device(device), seed)
@@ -174,18 +200,33 @@ class Transformer(nn.Module):
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens ``(B, L)`` -> logits ``(B, L, V)``; differentiable, with
-        each layer under remat when ``cfg.remat`` and autograd records.
-        The reference also returns MoE metrics, zeros for a dense model;
-        :func:`loss_fn` makes them."""
+        each layer under remat when ``cfg.remat`` and autograd records."""
+        return self.forward_with_metrics(tokens)[0]
+
+    def forward_with_metrics(self, tokens: torch.Tensor
+                             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The reference's ``forward``: logits and ``{"moe_aux_loss",
+        "moe_dropped"}``, the layers' auxiliary losses and dropped rows
+        summed (0-d device tensors; zeros for a dense model)."""
         rope = self._rope_tables(0, tokens.shape[1])
         x = self.embed[tokens]
         remat = self.cfg.remat and torch.is_grad_enabled()
+        aux, dropped = [], []
         for i, w in enumerate(self._layers()):
             if remat:
-                x = _remat(self.cfg, self._layer, i, w, x, rope)
+                x, m = _remat(self.cfg, self._layer, i, w, x, rope)
             else:
-                x = self._layer(i, w, x, rope)
-        return self._logits(x)
+                x, m = self._layer(i, w, x, rope)
+            if m is not None:
+                aux.append(m["aux_loss"])
+                dropped.append(m["dropped_tokens"])
+        dev = x.device
+        metrics = {
+            "moe_aux_loss": (torch.stack(aux).sum() if aux else
+                             torch.zeros((), dtype=torch.float32, device=dev)),
+            "moe_dropped": (torch.stack(dropped).sum().to(torch.int32) if dropped
+                            else torch.zeros((), dtype=torch.int32, device=dev))}
+        return self._logits(x), metrics
 
     # ------------------------------------------------------------- serving
 
@@ -209,7 +250,7 @@ class Transformer(nn.Module):
         rope = self._rope_tables(0, l)
         x = self.embed[tokens]
         for i, w in enumerate(self._layers()):
-            x = self._layer(i, w, x, rope, cache, 0)
+            x, _ = self._layer(i, w, x, rope, cache, 0)
         cache["pos"] = l
         return self._logits(x[:, -1:])[:, 0], cache
 
@@ -223,7 +264,7 @@ class Transformer(nn.Module):
         rope = self._rope_tables(pos, 1)
         x = self.embed[tokens][:, None, :]
         for i, w in enumerate(self._layers()):
-            x = self._layer(i, w, x, rope, cache, pos)
+            x, _ = self._layer(i, w, x, rope, cache, pos)
         cache["pos"] = pos + 1
         return self._logits(x)[:, 0], cache
 
@@ -244,11 +285,13 @@ class Transformer(nn.Module):
 
     def _layer(self, i: int, w: Dict[str, torch.Tensor], x: torch.Tensor,
                rope: Tuple[torch.Tensor, torch.Tensor],
-               cache: Optional[Dict[str, Any]] = None, pos: int = 0) -> torch.Tensor:
+               cache: Optional[Dict[str, Any]] = None, pos: int = 0
+               ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
         """Block ``i`` with weights ``w``; x ``(B, L, d)`` at positions
         ``[pos, pos + L)``, whose rotary tables are ``rope``.  With a cache,
         the new k/v go into slots ``[pos, pos + L)`` and attention reads
-        slots ``[0, pos + L)``."""
+        slots ``[0, pos + L)``.  Returns the block's output and, for a MoE
+        block, its metrics (None for a dense one)."""
         cfg = self.cfg
         b, l, _ = x.shape
         dh = cfg.head_dim
@@ -269,10 +312,23 @@ class Transformer(nn.Module):
             cv[:, :, pos:end] = v
             k, v = ck[:, :, :end], cv[:, :, :end]
         o = attention(q, k, v, causal=True, window=cfg.sliding_window,
-                      backend=cfg.attn_backend)
+                      backend=cfg.kernel_backend)
         x = x + dense(o.transpose(1, 2).reshape(b, l, cfg.n_heads * dh), w["wo"])
         h = rmsnorm(x, w["mlp_norm"])
-        return x + swiglu(h, w["w_gate"], w["w_up"], w["w_down"])
+        if cfg.moe is None:
+            return x + swiglu(h, w["w_gate"], w["w_up"], w["w_down"]), None
+        p = {"router": {"w": w["router"]},
+             "experts": {k: {"w": w[f"expert_{k}"]} for k in _SWIGLU}}
+        if cfg.moe.dense_residual_d_ff:
+            p["dense_residual"] = {k: {"w": w[f"residual_{k}"]} for k in _SWIGLU}
+        if cfg.moe.dispatch == "batched":  # one dispatch per sequence
+            y, m = moe_layer.moe_apply_grouped(p, cfg.moe, h,
+                                               backend=cfg.kernel_backend)
+        else:
+            y, m = moe_layer.moe_apply(p, cfg.moe, h.reshape(b * l, -1),
+                                       backend=cfg.kernel_backend)
+            y = y.view(b, l, -1)
+        return x + y, m
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = rmsnorm(x, self.final_norm)
@@ -281,35 +337,52 @@ class Transformer(nn.Module):
         return dense(x, self.lm_head)
 
 
-def loss_fn(model: Transformer, tokens: torch.Tensor, labels: torch.Tensor
+def loss_fn(model: Transformer, tokens: torch.Tensor, labels: torch.Tensor,
+            aux_weight: float = 0.01
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean token cross-entropy of ``model(tokens)`` against ``labels``
-    (``transformer.py:313``), and the reference's metrics: the MoE
-    auxiliary loss and dropped tokens, zeros for a dense model (the
-    reference's ``aux_weight`` weighs the first in a MoE model's loss)."""
-    loss = cross_entropy_loss(model(tokens), labels)
-    return loss, {
-        "moe_aux_loss": torch.zeros((), dtype=torch.float32, device=loss.device),
-        "moe_dropped": torch.zeros((), dtype=torch.int32, device=loss.device)}
+    (``transformer.py:313-319``), plus, for a MoE model, ``aux_weight``
+    times the layers' auxiliary loss over ``n_layers``; and the reference's
+    metrics, the MoE auxiliary loss and dropped rows (zeros for a dense
+    model), detached."""
+    logits, metrics = model.forward_with_metrics(tokens)
+    loss = cross_entropy_loss(logits, labels)
+    if model.cfg.moe:
+        loss = loss + aux_weight * metrics["moe_aux_loss"] / model.cfg.n_layers
+    return loss, {k: v.detach() for k, v in metrics.items()}
 
 
+_SWIGLU = ("gate", "up", "down")
 # the stacked per-layer weights, in :func:`weight_shapes`'s names
 _LAYER_WEIGHTS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
-                  "w_up", "w_down", "bq", "bk", "bv")
+                  "w_up", "w_down", "bq", "bk", "bv", "router", "expert_gate",
+                  "expert_up", "expert_down", "residual_gate", "residual_up",
+                  "residual_down")
 
 
 def weight_shapes(cfg: TransformerConfig) -> Dict[str, Tuple[int, ...]]:
     """The port's weight names and shapes; layer weights stacked on a
-    leading ``n_layers`` axis, dense weights ``(d_in, d_out)``."""
+    leading ``n_layers`` axis, dense weights ``(d_in, d_out)``.  A MoE
+    layer has the router ``(n, d, E)``, the experts' ``expert_{gate,up}``
+    ``(n, E, d, f)`` and ``expert_down`` ``(n, E, f, d)``, and with a dense
+    residual ``residual_{gate,up,down}``, in place of ``w_{gate,up,down}``."""
     n, d, dh, f = cfg.n_layers, cfg.d_model, cfg.head_dim, cfg.d_ff
     hq, hkv = cfg.n_heads * dh, cfg.n_kv_heads * dh
     shapes = {
         "embed": (cfg.vocab, d),
         "attn_norm": (n, d), "wq": (n, d, hq), "wk": (n, d, hkv),
         "wv": (n, d, hkv), "wo": (n, hq, d), "mlp_norm": (n, d),
-        "w_gate": (n, d, f), "w_up": (n, d, f), "w_down": (n, f, d),
-        "final_norm": (d,),
     }
+    if cfg.moe is None:
+        shapes.update(w_gate=(n, d, f), w_up=(n, d, f), w_down=(n, f, d))
+    else:
+        e, fe, fr = cfg.moe.n_experts, cfg.moe.d_ff, cfg.moe.dense_residual_d_ff
+        shapes.update(router=(n, d, e), expert_gate=(n, e, d, fe),
+                      expert_up=(n, e, d, fe), expert_down=(n, e, fe, d))
+        if fr:
+            shapes.update(residual_gate=(n, d, fr), residual_up=(n, d, fr),
+                          residual_down=(n, fr, d))
+    shapes["final_norm"] = (d,)
     if cfg.qkv_bias:
         shapes.update(bq=(n, hq), bk=(n, hkv), bv=(n, hkv))
     if not cfg.tie_embeddings:
@@ -330,7 +403,7 @@ def _draw_weights(cfg: TransformerConfig, device: torch.device,
             out[name] = torch.zeros(shape, dtype=cfg.dtype, device=device)
         elif name == "lm_head":
             out[name] = dense_init(gen, *shape, dtype=cfg.dtype)
-        else:  # stacked dense weights (n, d_in, d_out)
-            out[name] = dense_init(gen, shape[1], shape[2], shape[0],
+        else:  # stacked dense weights (n, [E,] d_in, d_out)
+            out[name] = dense_init(gen, shape[-2], shape[-1], *shape[:-2],
                                    dtype=cfg.dtype)
     return out

@@ -1,7 +1,9 @@
 """The CUDA kernels (histogram, segment max, Count-Min, segment sum,
 attention) against their plain versions, on the card, and the paths that
 run them: the transformer's serving and training (the attention kernel as
-an ``autograd.Function``), the challenge, the stream and the service.
+an ``autograd.Function``), the MoE decoders' serving (the combine on the
+segment sum), xDeepFM's ``embedding_bag`` and ``serve_p99``, the GNNs,
+the challenge, the stream and the service.
 
 These tests need an NVIDIA card and ``nvcc``: they carry the ``cuda``
 marker and skip without a card.  Run them on a machine with one:
@@ -11,6 +13,7 @@ marker and skip without a card.  Run them on a machine with one:
 This file imports torch and the port only (the card's machine has no JAX).
 """
 import itertools
+import math
 import time
 
 import pytest
@@ -595,7 +598,7 @@ def test_transformer_serving_kernel_matches_plain(dev, config):
         dtype=torch.bfloat16, d_head=64)
     runs = {}
     for backend in ("cuda", "torch"):
-        model = Transformer(dataclasses.replace(cfg, attn_backend=backend),
+        model = Transformer(dataclasses.replace(cfg, kernel_backend=backend),
                             device="cuda", seed=0)
         g = torch.Generator(device=dev).manual_seed(1)
         tokens = torch.randint(0, cfg.vocab, (2, 48), generator=g, device=dev)
@@ -925,7 +928,7 @@ def _train_smoke(dev, ckpt_dir=None, seed=0):
     from repro_torch.train import AdamWConfig, Trainer
 
     cfg = dataclasses.replace(minicpm_2b.smoke_config(), dtype=torch.bfloat16,
-                              d_head=64, remat=True, attn_backend="cuda")
+                              d_head=64, remat=True, kernel_backend="cuda")
     model = Transformer(cfg, device=dev, seed=seed)
     trainer = Trainer(lambda p, b: loss_fn(model, b["tokens"], b["labels"]),
                       AdamWConfig(warmup_steps=2, total_steps=10, schedule="wsd"),
@@ -1105,3 +1108,145 @@ def test_gnn_config_smoke_on_the_card(dev, config):
     before = segsum_kernel.LAUNCHES
     assert mod.smoke() == mod.smoke("cpu")
     assert segsum_kernel.LAUNCHES > before
+
+
+# ------------------------------------------------------ MoE and xDeepFM serving
+
+def test_moe_layer_kernel_equals_plain(dev):
+    """One MoE layer in bfloat16 at a mixtral-like shape (8 experts, top 2,
+    rows dropped), global and batched dispatch: the combine on the
+    segment-sum kernel equals the plain ``index_add_`` bit for bit (a
+    token's two rows, summed in float32, round once to bfloat16 either
+    way), one launch a call, no host sync."""
+    from repro_torch.models import moe as M
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    for dispatch in ("global", "batched"):
+        cfg = M.MoEConfig(n_experts=8, top_k=2, d_ff=256, capacity_factor=0.75,
+                          dense_residual_d_ff=128, dispatch=dispatch)
+        p = M.moe_init(g, cfg, 128, dtype=torch.bfloat16)
+        x = torch.randn(3, 200, 128, generator=g, device=dev, dtype=torch.bfloat16)
+        want, wm = M.moe_apply_grouped(p, cfg, x, backend="torch")
+        torch.cuda.synchronize()
+        before = segsum_kernel.LAUNCHES
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got, gm = M.moe_apply_grouped(p, cfg, x, backend="cuda")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert segsum_kernel.LAUNCHES == before + 1
+        assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+        assert int(gm["dropped_tokens"]) == int(wm["dropped_tokens"]) > 0
+        assert torch.equal(gm["aux_loss"], wm["aux_loss"])
+
+
+@pytest.mark.parametrize("config", ["mixtral_8x7b", "arctic_480b"])
+def test_moe_serving_kernel_matches_plain_without_a_host_sync(dev, config):
+    """Each MoE smoke config in bfloat16 with heads of 128 (the kernel's;
+    the smoke configs' are 8): a prompt of 40 tokens (past mixtral's window
+    of 8) into a 64-slot cache and 8 decode steps through the attention
+    and segment-sum kernels, once to warm up, then again with every host
+    sync an error; the same through the plain path.  One launch of each
+    kernel a layer a call; logits within 3e-2 relative L2 (bf16 rounding
+    of P in the attention kernel, through two layers)."""
+    import dataclasses
+    import importlib
+
+    from repro_torch.kernels.launches import read_launches, reset_launches
+    from repro_torch.models.transformer import Transformer
+
+    cfg = dataclasses.replace(
+        importlib.import_module(f"repro_torch.configs.{config}").smoke_config(),
+        dtype=torch.bfloat16, d_head=128)
+    tokens = torch.randint(0, cfg.vocab, (2, 48), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+
+    def run(model):
+        cache = model.init_kv_cache(2, 64)
+        logits, cache = model.prefill(tokens[:, :40], cache)
+        out = [logits]
+        for i in range(40, 48):
+            logits, cache = model.decode_step(tokens[:, i], cache)
+            out.append(logits)
+        return torch.stack(out).float()
+
+    runs = {}
+    for backend in ("cuda", "torch"):
+        model = Transformer(dataclasses.replace(cfg, kernel_backend=backend),
+                            device="cuda", seed=0)
+        run(model)
+        torch.cuda.synchronize()
+        reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            runs[backend] = (run(model), read_launches())
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    calls = cfg.n_layers * 9
+    assert {k: v for k, v in runs["cuda"][1].items() if v} == {
+        "flash_attention": calls, "segment_matmul": calls}
+    assert not any(runs["torch"][1].values())
+    got, want = runs["cuda"][0], runs["torch"][0]
+    assert bool(torch.isfinite(got).all())
+    rel = ((got - want).norm(dim=-1) / want.norm(dim=-1)).max().item()
+    assert rel < 3e-2, rel
+
+
+def test_embedding_bag_kernel_equals_plain(dev):
+    """``embedding_bag`` on the segment-sum kernel: 4,096 bags of 39 ids,
+    width 10, with dropped bag ids, every mode; integer-valued tables and
+    weights, so float sums are exact in any order: bit-equal to the plain
+    ``index_add_``."""
+    from repro_torch.models.recsys import embedding_bag
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    table = torch.randint(-8, 9, (100_000, 10), generator=g, device=dev).float()
+    n = 4096 * 39
+    idx = torch.randint(0, 100_000, (n,), generator=g, device=dev)
+    bags = torch.arange(n, device=dev) // 39
+    bags[::97] = -1
+    bags[1::101] = 4096
+    w = torch.randint(-3, 4, (n,), generator=g, device=dev).float()
+    for mode in ("sum", "mean"):
+        for weights in (None, w):
+            before = segsum_kernel.LAUNCHES
+            got = embedding_bag(table, idx, bags, 4096, weights, mode, backend="cuda")
+            assert segsum_kernel.LAUNCHES == before + (2 if mode == "mean" else 1)
+            want = embedding_bag(table, idx, bags, 4096, weights, mode, backend="torch")
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (mode, weights is None)
+
+
+def test_xdeepfm_serve_p99_on_the_card(dev):
+    """xDeepFM's ``serve_p99`` step at the published size (38,190,000 table
+    rows drawn on the card): 512 rows, one gathered row a field (no
+    segment-sum launch; every host sync an error after a first call), equal
+    to the same step on the CPU, which ``test_torch_recsys.py`` holds to
+    the reference; the config's ``smoke()`` on the card."""
+    from repro_torch.configs import xdeepfm
+    from repro_torch.data.pipeline import recsys_batches
+    from repro_torch.models.recsys import xdeepfm_init
+
+    params = xdeepfm_init(torch.Generator(device=dev).manual_seed(0), xdeepfm.CFG)
+    ids = torch.from_numpy(next(recsys_batches(512, 39, xdeepfm.CFG.field_vocabs()))
+                           ["sparse_ids"]).to(dev)
+    serve = xdeepfm.serve_fn("serve_p99")
+    serve(params, ids)
+    torch.cuda.synchronize()
+    before = segsum_kernel.LAUNCHES
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = serve(params, ids)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert segsum_kernel.LAUNCHES == before
+    def on_cpu(t):
+        if isinstance(t, dict):
+            return {k: on_cpu(v) for k, v in t.items()}
+        return [on_cpu(v) for v in t] if isinstance(t, list) else t.cpu()
+
+    want = serve(on_cpu(params), ids.cpu())
+    assert got.shape == (512,) and bool(((got > 0) & (got < 1)).all())
+    assert torch.allclose(got.cpu(), want, rtol=1e-6, atol=1e-7)
+    del params
+    assert math.isfinite(xdeepfm.smoke()["loss"])

@@ -37,7 +37,9 @@ def test_scan_covers_the_port():
             "scenarios.py", "faults.py", "checkpoint.py", "recovery.py",
             "serve.py", "optimizer.py", "loop.py", "elastic.py",
             "train.py", "gnn.py", "common_gnn.py", "schnet.py", "pna.py",
-            "egnn.py", "graphsage_reddit.py", "sampler.py"} <= names
+            "egnn.py", "graphsage_reddit.py", "sampler.py", "moe.py",
+            "recsys.py", "mixtral_8x7b.py", "arctic_480b.py",
+            "xdeepfm.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -62,7 +62,7 @@ CONFIGS = {
 def _port_cfg(ref_cfg) -> TransformerConfig:
     assert ref_cfg.dtype == jnp.float32
     return TransformerConfig(**{f: getattr(ref_cfg, f) for f in SERVED},
-                             dtype=torch.float32, attn_backend="torch")
+                             dtype=torch.float32, kernel_backend="torch")
 
 
 def _pair(name):
@@ -162,10 +162,17 @@ def test_drawn_weights_follow_the_reference_initialisers():
 
 
 def test_model_refuses_what_is_not_ported():
+    """A MoE config is ported (``tests/test_torch_moe.py``): the model draws
+    its weights, and refuses a dense model's weights for it; a prompt past
+    the cache raises."""
+    from repro_torch.models.moe import MoEConfig
+
     cfg = granite_8b.smoke_config()
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        Transformer(dataclasses.replace(cfg, moe=object()), device="cpu")
+    moe_cfg = dataclasses.replace(cfg, moe=MoEConfig(n_experts=4, top_k=2, d_ff=32))
+    assert Transformer(moe_cfg, device="cpu").expert_gate.shape == (2, 4, 64, 32)
     model = Transformer(cfg, device="cpu")
+    with pytest.raises(ValueError, match="are not those of"):
+        Transformer(moe_cfg, weights=dict(model.named_parameters()))
     cache = model.init_kv_cache(1, 4)
     with pytest.raises(ValueError, match="cannot hold"):
         model.prefill(torch.zeros(1, 5, dtype=torch.long), cache)

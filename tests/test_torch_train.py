@@ -100,7 +100,7 @@ CONFIGS = {
 def _port_cfg(ref_cfg, **kw) -> PT.TransformerConfig:
     kw = {"remat": ref_cfg.remat, **kw}
     return PT.TransformerConfig(**{f: getattr(ref_cfg, f) for f in SERVED},
-                                dtype=torch.float32, attn_backend="torch", **kw)
+                                dtype=torch.float32, kernel_backend="torch", **kw)
 
 
 def _numpy(tree):
@@ -674,8 +674,14 @@ def test_train_cli_on_the_cpu(tmp_path):
                  "16", "--ckpt-dir", d, "--device", "cpu")
     assert again.returncode == 0, again.stderr
     assert "resumed at step 10 of 10" in again.stdout
-    moe = _cli("--arch", "mixtral-8x7b", "--device", "cpu")
-    assert moe.returncode == 2 and "MoE" in moe.stderr
+    # a MoE arch trains through the same loss_fn, its auxiliary term logged
+    moe = _cli("--arch", "mixtral-8x7b", "--steps", "3", "--batch", "2", "--seq",
+               "16", "--log-every", "1", "--device", "cpu")
+    assert moe.returncode == 0, moe.stderr
+    steps = [l for l in moe.stdout.splitlines() if l.startswith("[train] moe_aux_loss=")]
+    assert len(steps) == 3 and "done: final loss" in moe.stdout
+    assert all(float(l.split("moe_aux_loss=")[1].split()[0]) > 0
+               and "moe_dropped=" in l for l in steps)
 
 
 def test_train_cli_needs_a_card_or_cpu(monkeypatch):

@@ -46,6 +46,18 @@ steps from position 2,048).  Their records add the device time of the
 attention kernel (its prefill path in ``lm_prefill``, its split-kv decode
 path and combine in ``lm_decode``), of the matrix products and of the rest.
 
+MoE serving, mixtral-8x7b at full width cut to ``chip_smoke.py``'s 8
+layers, bf16, weights drawn on the card, two requests: ``moe_prefill``
+(6,144 prompt tokens each, past the 4,096-key window, into a 6,176-slot
+cache) and ``moe_decode`` (8 decode steps from position 6,144).  Their
+records add the device time of the attention kernel, of the segment-sum
+kernel (the combine), of the expert SwiGLUs' products, of the dispatch
+(the router, its sort, the group-by's argsort and scans, the buffers'
+scatters and gathers), of the other matrix products and of the rest; a
+kernel counts under the experts, the combine or the dispatch when the
+profiler's CPU range around those calls (added here, not in the port)
+launched it.
+
 LM training, ``lm_train``: one ``Trainer`` step of minicpm-2b at full size
 (40 layers, bf16, remat, weights drawn on the card) on 4 x 2,048 tokens of
 ``lm_batches``, AdamW as the reference launcher sets it.  Its record adds
@@ -74,6 +86,7 @@ rest.  ``gnn_graphsage_reddit_ogb_products`` needs
     python3 tools/profile_torch_challenge.py --phases hist_activity hist_gated cms_fold
     python3 tools/profile_torch_challenge.py --phases lm_prefill lm_decode --layers 36
     python3 tools/profile_torch_challenge.py --phases lm_train --reps 3
+    python3 tools/profile_torch_challenge.py --phases moe_prefill moe_decode
     python3 tools/profile_torch_challenge.py --phases gnn_pna_molecule gnn_pna_minibatch_lg
 """
 from __future__ import annotations
@@ -165,16 +178,19 @@ def profile_phase(name, fn, reps, top, calls=None):
     return rec
 
 
-# profiler ranges whose kernels form a family of their own (lm_train); the
-# profiler also shows each range on the device's timeline, under its name,
-# which is no device work
+# profiler ranges whose kernels form a family of their own (lm_train,
+# moe_*; the innermost range counts); the profiler also shows each range on
+# the device's timeline, under its name, which is no device work
 RANGES = {"plain_attention_backward": "plain attention backward",
-          "adamw_update": "optimizer"}
+          "adamw_update": "optimizer",
+          "moe_dispatch": "MoE dispatch",
+          "moe_experts": "expert matmuls",
+          "moe_combine": "segment-sum kernel"}
 
 
 def _ranged_kernel_ms(events) -> dict:
     """Device ms of the kernels that a CPU op inside one of ``RANGES``
-    launched, by family and kernel name."""
+    launched, by family and kernel name: the innermost range's family."""
     out = {}
     for e in events:
         if not getattr(e, "kernels", None):
@@ -214,13 +230,16 @@ KERNEL_PHASES = tuple(f"{k}{s}" for k in ("segmax_vxm", "hll_fold", "cms_fold",
                                            "segment_reduce", "segment_reduce_lg")
                       for s in ("", "_library"))
 LM_PHASES = ("lm_prefill", "lm_decode")
+MOE_PHASES = ("moe_prefill", "moe_decode")
 TRAIN_PHASES = ("lm_train",)
 GNN_PHASES = tuple(f"gnn_{c}_{s}" for s in ("molecule", "full_graph_sm", "minibatch_lg")
                    for c in ("schnet", "pna", "egnn", "graphsage_reddit")
                    ) + ("gnn_graphsage_reddit_ogb_products",)
-PHASES = TABLE_PHASES + KERNEL_PHASES + LM_PHASES + TRAIN_PHASES + GNN_PHASES
+PHASES = (TABLE_PHASES + KERNEL_PHASES + LM_PHASES + MOE_PHASES + TRAIN_PHASES
+          + GNN_PHASES)
 CALLS = 20  # back-to-back calls per kernel phase
 LM_BATCH, LM_PROMPT, LM_SLOTS, LM_STEPS = 4, 2048, 2080, 8
+MOE_LAYERS, MOE_BATCH, MOE_PROMPT, MOE_SLOTS = 8, 2, 6144, 6176  # chip_smoke's
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048
 STREAM_BATCH, STREAM_BATCHES = 1 << 18, 8  # stream_ingest: row groups a call
 
@@ -398,7 +417,7 @@ def lm_phases(args, dev):
     from repro_torch.models.transformer import Transformer
 
     cfg = dataclasses.replace(granite_8b.full_config(), n_layers=args.layers,
-                              attn_backend="cuda")
+                              kernel_backend="cuda")
     model = Transformer(cfg, device=dev, seed=0)
     g = torch.Generator(device=dev).manual_seed(1)
     tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=g,
@@ -419,6 +438,52 @@ def lm_phases(args, dev):
                       "decode_steps_per_call": LM_STEPS}))
     return {"lm_prefill": lambda: model.prefill(tokens, cache),
             "lm_decode": decode}
+
+
+def moe_phases(dev):
+    """mixtral-8x7b serving at MOE_LAYERS layers: a prefill of two 6,144-
+    token prompts, and 8 decode steps from position 6,144 (the cache's
+    position set back before each call); the MoE layer's dispatch, expert
+    SwiGLUs and combine run inside profiler ranges named as in
+    ``RANGES``."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import mixtral_8x7b
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import Transformer
+
+    def ranged(name, fn):
+        def call(*args, **kw):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kw)
+        return call
+
+    moe.moe_apply_grouped = ranged("moe_dispatch", moe.moe_apply_grouped)
+    moe._experts = ranged("moe_experts", moe._experts)
+    moe.segment_reduce = ranged("moe_combine", moe.segment_reduce)
+    cfg = dataclasses.replace(mixtral_8x7b.full_config(), n_layers=MOE_LAYERS,
+                              kernel_backend="cuda")
+    model = Transformer(cfg, device=dev, seed=0)
+    g = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (MOE_BATCH, MOE_PROMPT), generator=g,
+                           device=dev)
+    cache = model.init_kv_cache(MOE_BATCH, MOE_SLOTS)
+    logits, _ = model.prefill(tokens, cache)
+    first = logits.argmax(-1)
+
+    def decode():
+        cache["pos"] = MOE_PROMPT
+        nxt = first
+        for _ in range(LM_STEPS):
+            logits, _ = model.decode_step(nxt, cache)
+            nxt = logits.argmax(-1)
+
+    print(json.dumps({"model": cfg.name, "layers": cfg.n_layers,
+                      "batch": MOE_BATCH, "prompt": MOE_PROMPT,
+                      "decode_steps_per_call": LM_STEPS}))
+    return {"moe_prefill": lambda: model.prefill(tokens, cache),
+            "moe_decode": decode}
 
 
 def train_phases(dev):
@@ -449,7 +514,7 @@ def train_phases(dev):
 
     FlashAttention.backward = staticmethod(ranged_backward)
     loop.adamw_update = ranged_update
-    cfg = dataclasses.replace(minicpm_2b.full_config(), attn_backend="cuda")
+    cfg = dataclasses.replace(minicpm_2b.full_config(), kernel_backend="cuda")
     model = Transformer(cfg, device=dev, seed=0)
     trainer = Trainer(lambda p, b: loss_fn(model, b["tokens"], b["labels"]),
                       AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=100,
@@ -517,6 +582,8 @@ def main(argv=None) -> int:
         phases.update(table_phases(args, dev))
     if set(LM_PHASES) & set(args.phases):
         phases.update(lm_phases(args, dev))
+    if set(MOE_PHASES) & set(args.phases):
+        phases.update(moe_phases(dev))
     if set(TRAIN_PHASES) & set(args.phases):
         phases.update(train_phases(dev))
     gnn = [n for n in args.phases if n in GNN_PHASES]
