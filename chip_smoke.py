@@ -258,13 +258,49 @@ Phases (any failure exits non-zero):
    ``F.embedding_bag`` (or ``index_add_``) and the bound, and the
    segment-sum kernel alone on its gathered rows.
 
+15. MoE and xDeepFM training through the registry's train cells
+   (``repro_torch.configs``), weights drawn on the card from ``SEED``:
+   (a) mixtral-8x7b at full width, its train_4k cell built by the port's
+   ``lm_spec`` with the depth cut to 3 of 32 layers (55.5 GB of bf16
+   weights and gradients and float32 moments; 4 layers would hold 72.7 GB
+   before AdamW's temporaries and any activation), 4 x 2,048 tokens a step
+   (cut from the cell's 256 x 4,096), the global dispatch, remat
+   "nothing", the reference's LM AdamW: 6 steps through the attention and
+   segment-sum kernels (per step: the wall on the device's timeline,
+   tokens/s, MFU over the active parameters, peak memory, dropped rows,
+   the auxiliary loss, and each kernel's launches, twice a layer: the
+   forward and its recompute; host syncs of steps 2-6 counted with
+   ``set_sync_debug_mode("warn")``: 0), 3 steps from the same weights and
+   batches through the plain path (each loss within
+   ``MOE_TRAIN_LOSS_TOL``) and 3 with every combine row moved to the next
+   token (beyond it after the first update), then one step of
+   ``optimized_config()``'s batched dispatch (capacity factor 1.0); (b)
+   ``SegmentSum`` forward + backward at the combine's training shape
+   (20,544 bf16 rows x 4,096 into 8,192 tokens), the sums and the rows'
+   gradients bit-equal to plain autograd's, timed by events and on the
+   device alone beside plain autograd, ``index_add`` in bf16 under
+   autograd and its bytes bound; (c) xDeepFM's train_batch cell
+   (``get_spec("xdeepfm").build_cell("train_batch", SINGLE_POD)``) at the
+   published size, uncut: 65,536 rows a step of ``recsys_batches``, 5
+   steps (rows/s, walls, peak, the idle share of a traced step, 0 host
+   syncs in steps 2-5, then one step keeping the CIN's products for its
+   peak, no kernel launch: the lookups are gathers and
+   their gradient autograd's ``index_add_``, as the reference's
+   ``jnp.take``); at 4,096 rows the loss and every gradient leaf against
+   the reference's order written out plainly (``XDEEPFM_TRAIN_TOL``), the
+   CIN's recompute bit-equal to keeping its products, and the labels
+   flipped (beyond the limit); (d) ``python -m repro_torch.launch.train
+   --arch mixtral-8x7b --d-head 64 --steps 20`` through its ``main``:
+   exit 0, 40 launches of each kernel.
+
 Then it prints one JSON line of kernel records, whose launch counts are
 those of the main path's runs (phases 3, 4 and 5, without the algorithms
 timed on their own; the segment-sum entry point's run of phase 6; phase
 7's counted run; phase 8's, 9's and 10's runs, phase 11's (b) kernel
 run, (c) runs and (d) CLI runs, phase 12's kernel runs of (b), (c)
-and (d), phase 13's counted runs and phase 14's counted serve calls, each
-under its own name),
+and (d), phase 13's counted runs, phase 14's counted serve calls and
+phase 15's kernel runs of (a) and its CLI run of (d), each under its own
+name),
 the card line
 again, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -2762,12 +2798,13 @@ def _train_run(trainer, state, vocab, n_steps, start=0, sync_steps=()):
     return walls, wall, syncs
 
 
-def _step_flops(cfg) -> float:
-    """6 N D for the parameters, plus attention's products: QK^T and PV over
-    the keys a causal query sees, forward and twice that backward."""
-    attn = 3 * 4 * TRAIN_BATCH * cfg.n_heads * cfg.head_dim * _visible_keys(
-        TRAIN_SEQ, TRAIN_SEQ, True, cfg.sliding_window) * cfg.n_layers
-    return 6 * cfg.n_params * TRAIN_BATCH * TRAIN_SEQ + attn
+def _step_flops(cfg, n_params, batch=TRAIN_BATCH, seq=TRAIN_SEQ) -> float:
+    """6 N D for ``n_params`` parameters (a MoE model's active ones), plus
+    attention's products: QK^T and PV over the keys a causal query sees,
+    forward and twice that backward."""
+    attn = 3 * 4 * batch * cfg.n_heads * cfg.head_dim * _visible_keys(
+        seq, seq, True, cfg.sliding_window) * cfg.n_layers
+    return 6 * n_params * batch * seq + attn
 
 
 def train_minicpm(dev, workdir: str):
@@ -2804,7 +2841,7 @@ def train_minicpm(dev, workdir: str):
     del trainer, state, losses
     torch.cuda.empty_cache()
     step_ms = sorted(walls[1:])[len(walls[1:]) // 2]
-    flops = _step_flops(cfg)
+    flops = _step_flops(cfg, cfg.n_params)
     b = {"n_params": cfg.n_params, "tokens_per_step": TRAIN_BATCH * TRAIN_SEQ,
          "first_step_ms": walls[0], "step_ms_median_2_to_8": step_ms,
          "step_ms": walls, "run_s": wall,
@@ -3901,11 +3938,21 @@ def _xdeepfm_plain(params, cfg, ids, cand=None):
     import torch
     import torch.nn.functional as F
 
+    if cand is not None:
+        embs = torch.stack([F.embedding(ids[:, i], params["tables"][f"f{i}"])
+                            for i in range(ids.shape[1])], dim=1)
+        return embs.mean(dim=1) @ cand.T
+    return torch.sigmoid(_xdeepfm_plain_logits(params, cfg, ids))
+
+
+def _xdeepfm_plain_logits(params, cfg, ids):
+    """The logits ``(B,)`` of :func:`_xdeepfm_plain`, differentiable."""
+    import torch
+    import torch.nn.functional as F
+
     b, m = ids.shape
     embs = torch.stack([F.embedding(ids[:, i], params["tables"][f"f{i}"])
                         for i in range(m)], dim=1)
-    if cand is not None:
-        return embs.mean(dim=1) @ cand.T
     lin = sum(F.embedding(ids[:, i], params["linear"][f"f{i}"]) for i in range(m))
     pooled = []
     for s in range(0, b, XDEEPFM_PLAIN_CHUNK):
@@ -3921,7 +3968,7 @@ def _xdeepfm_plain(params, cfg, ids, cand=None):
         x = x @ params["mlp"][f"l{i}"]["w"] + params["mlp"][f"l{i}"]["b"]
         if i < len(params["mlp"]) - 1:
             x = torch.relu(x)
-    return torch.sigmoid((lin + cin + x)[:, 0] + params["bias"])
+    return (lin + cin + x)[:, 0] + params["bias"]
 
 
 def _bag_bound(got, want, abs_sum, k):
@@ -4083,6 +4130,474 @@ def serve_xdeepfm(dev):
     return launches, summary, shapes, max_err
 
 
+# MoE and xDeepFM training (phase 15).  mixtral-8x7b at full width cut to
+# MOE_TRAIN_LAYERS of its 32 layers (a layer is 1.451 B parameters, 17.4 GB
+# as bf16 weights and gradients and float32 moments; 3 layers with the
+# embedding and head hold 55.3 GB, 4 would hold 72.7 GB before any
+# activation), 4 x 2,048 tokens a step (cut from the train_4k cell's 256 x
+# 4,096), through the port's lm_spec cell with the reference's LM AdamW
+# (lr 3e-4, cosine over 10,000 steps): config -> (layers, batch, seq)
+MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 3, 4, 2048
+MOE_TRAIN_STEPS, MOE_TRAIN_CHECK_STEPS = 6, 3
+# |loss - the plain path's loss| at each of the first MOE_TRAIN_CHECK_STEPS
+# steps from the same weights and batches (the kernel path's attention
+# rounds P to bf16 before P V, and a router near-tie may send a token's row
+# to another expert on one path only): on an H100, 6.5e-4, 2.6e-5 and
+# 3.7e-4 at losses of 10.4-11.0.  A control that adds every live combine
+# row to the next token gives 0.0205 and 0.0048 at steps 2 and 3, which it
+# must exceed; at step 1 it gives 4.0e-4 and is not held: from random
+# weights the logits are noise, and the mean cross-entropy of 8,192 tokens
+# is the same to 1e-3 under any such reshuffle of them.
+MOE_TRAIN_LOSS_TOL = 2e-3
+# xDeepFM's train_batch cell at the published size, uncut: 65,536 rows a
+# step, XDEEPFM_TRAIN_STEPS steps; the checks at XDEEPFM_CHECK_ROWS rows.
+XDEEPFM_TRAIN_STEPS, XDEEPFM_CHECK_ROWS = 5, 4096
+# Relative difference of the port's loss, and relative L2 error of each of
+# its gradient leaves, against the reference's order written out plainly
+# (``_xdeepfm_plain_logits`` under autograd) on the same weights and rows:
+# the CIN's products sum in another order in float32, and a table's
+# gradient is index_add_'s, with atomics.  On an H100: 0.0 and 1.83e-6.  A
+# control with the labels flipped (2.3e-4 on the loss, 2.13 on a gradient
+# leaf) must exceed it on both.
+XDEEPFM_TRAIN_TOL = 1e-5
+
+
+@contextlib.contextmanager
+def _cin_kept():
+    """The CIN without recompute: each chunk's outer products kept for the
+    backward (``recsys.checkpoint`` replaced by a plain call)."""
+    from repro_torch.models import recsys
+
+    checkpoint = recsys.checkpoint
+    recsys.checkpoint = lambda fn, *args, **kw: fn(*args)
+    try:
+        yield
+    finally:
+        recsys.checkpoint = checkpoint
+
+
+def _moe_train_cell(config, n_layers):
+    """The train_4k cell of ``config`` (``full_config`` or
+    ``optimized_config`` of mixtral-8x7b) cut to ``n_layers``, through the
+    port's ``lm_spec`` as the reference's ``launch/perf.py`` builds a depth
+    variant (``dataclasses.replace(cfg, n_layers=L)``)."""
+    import dataclasses
+
+    from repro_torch.configs import SINGLE_POD, mixtral_8x7b
+    from repro_torch.configs.common import lm_spec
+
+    cut = lambda: dataclasses.replace(  # noqa: E731
+        getattr(mixtral_8x7b, config)(), n_layers=n_layers, kernel_backend="cuda")
+    return lm_spec(mixtral_8x7b.ARCH_ID, cut, mixtral_8x7b.smoke_config,
+                   full_attention_only=False).build_cell("train_4k", SINGLE_POD)
+
+
+def _moe_train_run(cell, dev, backend, steps, sync_steps=(), fault=None):
+    """``steps`` steps of ``cell.step_fn`` on a model drawn on the card
+    from SEED (the cell's config, attention and combine through
+    ``backend``) and batches of ``lm_batches`` staged on the card first: an
+    event at each step's start, each step's launches, the host syncs of the
+    steps in ``sync_steps``.  Returns (step walls in ms, launches a step,
+    metrics a step, peak bytes, host syncs by source line)."""
+    import dataclasses
+    import warnings
+
+    import torch
+    from repro_torch.convert import transformer_param_tree
+    from repro_torch.data.pipeline import lm_batches
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train import adamw_init
+
+    cfg = dataclasses.replace(cell.abstract_args[0].cfg, kernel_backend=backend)
+    model = Transformer(cfg, device=dev, seed=SEED)
+    opt = adamw_init(transformer_param_tree(model))
+    batches = lm_batches(MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, cfg.vocab, seed=SEED)
+    staged = [{k: torch.from_numpy(b[k]).to(dev) for k in ("tokens", "labels")}
+              for b, _ in zip(batches, range(steps))]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    events, launches, metrics = [], [], []
+    with warnings.catch_warnings(record=True) as caught, (
+            fault() if fault else contextlib.nullcontext()):
+        warnings.simplefilter("always")
+        try:
+            for i, b in enumerate(staged):
+                torch.cuda.set_sync_debug_mode("warn" if i in sync_steps else "default")
+                events.append(torch.cuda.Event(enable_timing=True))
+                events[-1].record()
+                reset_launches()
+                torch.cuda.reset_peak_memory_stats(dev)
+                model, opt, m = cell.step_fn(model, opt, b["tokens"], b["labels"])
+                launches.append(read_launches())
+                metrics.append({**m, "peak_bytes": torch.cuda.max_memory_allocated(dev)})
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    torch.cuda.synchronize()
+    walls = [a.elapsed_time(b) for a, b in zip(events, events[1:] + [end])]
+    metrics = [{k: v if isinstance(v, int) else v.item() for k, v in m.items()}
+               for m in metrics]
+    peak = max(m["peak_bytes"] for m in metrics)
+    del model, opt, staged
+    torch.cuda.empty_cache()
+    return walls, launches, metrics, peak, _sync_sites(caught)
+
+
+def train_moe(dev):
+    """Phase 15 (a): mixtral-8x7b at full width through its train_4k cell
+    cut to MOE_TRAIN_LAYERS layers, MOE_TRAIN_STEPS steps through the
+    attention and segment-sum kernels (0 host syncs in steps 2 on), then
+    MOE_TRAIN_CHECK_STEPS from the same weights and batches through the plain
+    path (each loss within MOE_TRAIN_LOSS_TOL) and as many with the combine
+    shifted (beyond it at every step after the first), then one step of the batched
+    dispatch at capacity factor 1.0.  Returns (launches by run, summary)."""
+    from repro_torch.models.moe import _capacity
+
+    cell = _moe_train_cell("full_config", MOE_TRAIN_LAYERS)
+    cfg = cell.abstract_args[0].cfg
+    tokens = MOE_TRAIN_BATCH * MOE_TRAIN_SEQ
+    log(f"[moe train] {cfg.name}: {cfg.n_layers} of 32 layers, {cfg.n_params:,} "
+        f"parameters ({cfg.n_active_params:,} active), {MOE_TRAIN_BATCH} x "
+        f"{MOE_TRAIN_SEQ} tokens a step, capacity {_capacity(tokens, cfg.moe)}, "
+        f"remat {cfg.remat_policy!r}")
+    walls, launches, metrics, peak, syncs = _moe_train_run(
+        cell, dev, "cuda", MOE_TRAIN_STEPS, sync_steps=range(1, MOE_TRAIN_STEPS))
+    flops = _step_flops(cfg, cfg.n_active_params, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ)
+    steps = [{"step": i + 1, "wall_ms": w, "tokens_per_s": tokens / w * 1e3,
+              "mfu": flops / (w * 1e-3) / BF16_FLOPS,
+              "attention_launches": l["flash_attention"],
+              "segment_sum_launches": l["segment_matmul"],
+              "loss": m["loss"], "moe_aux_loss": m["moe_aux_loss"],
+              "moe_dropped": m["moe_dropped"], "grad_norm": m["grad_norm"],
+              "peak_bytes": m["peak_bytes"]}
+             for i, (w, l, m) in enumerate(zip(walls, launches, metrics))]
+    for rec in steps:
+        log("[moe train] " + json.dumps(rec))
+    total = {k: sum(l[k] for l in launches) for k in launches[0]}
+    step_ms = sorted(walls[1:])[len(walls[1:]) // 2]
+    summary = {"layers": cfg.n_layers, "batch": MOE_TRAIN_BATCH, "seq": MOE_TRAIN_SEQ,
+               "n_params": cfg.n_params, "n_active_params": cfg.n_active_params,
+               "capacity": _capacity(tokens, cfg.moe), "flops_per_step": flops,
+               "step_ms_median_2_on": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+               "mfu": flops / (step_ms * 1e-3) / BF16_FLOPS,
+               "max_memory_allocated_bytes": peak, "host_syncs_steps_2_on": syncs,
+               "steps": steps}
+    failed = []
+    want = {**{k: 0 for k in launches[0]}, "flash_attention": 2 * cfg.n_layers,
+            "segment_matmul": 2 * cfg.n_layers}  # remat: twice a layer
+    if any(l != want for l in launches):
+        failed.append(f"launches a step {launches}, the code implies {want}")
+    if syncs:
+        failed.append(f"host syncs in steps 2-{MOE_TRAIN_STEPS}: {syncs}")
+    if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+               for m in metrics):
+        failed.append(f"losses {[m['loss'] for m in metrics]}")
+    kernel = [m["loss"] for m in metrics[:MOE_TRAIN_CHECK_STEPS]]
+    plain = [m["loss"] for m in _moe_train_run(cell, dev, "torch",
+                                               MOE_TRAIN_CHECK_STEPS)[2]]
+    control = [m["loss"] for m in _moe_train_run(cell, dev, "cuda", MOE_TRAIN_CHECK_STEPS,
+                                                 fault=_combine_shifted)[2]]
+    sound = [abs(a - b) for a, b in zip(kernel, plain)]
+    planted = [abs(a - b) for a, b in zip(control, plain)][1:]  # after an update
+    summary["loss_vs_plain"] = {"plain_losses": plain, "kernel_minus_plain": sound,
+                                "control_losses": control,
+                                "control_minus_plain_steps_2_on": planted,
+                                "limit": MOE_TRAIN_LOSS_TOL}
+    log("[moe train] " + json.dumps(summary["loss_vs_plain"]))
+    if max(sound) > MOE_TRAIN_LOSS_TOL:
+        failed.append(f"kernel losses {sound} from the plain path's, above "
+                      f"{MOE_TRAIN_LOSS_TOL}")
+    if not min(planted) > MOE_TRAIN_LOSS_TOL:
+        failed.append(f"the control (combine shifted) is within {MOE_TRAIN_LOSS_TOL} "
+                      f"of the plain path: {planted}")
+    runs = {"moe_train": total}
+    # the reference's adopted variant: batched dispatch, capacity factor 1.0
+    bcell = _moe_train_cell("optimized_config", MOE_TRAIN_LAYERS)
+    bwalls, blaunches, bmetrics, bpeak, _ = _moe_train_run(bcell, dev, "cuda", 1)
+    runs["moe_train_batched"] = blaunches[0]
+    bcfg = bcell.abstract_args[0].cfg
+    summary["batched"] = {"capacity": _capacity(MOE_TRAIN_SEQ, bcfg.moe),
+                          "wall_ms": bwalls[0], "max_memory_allocated_bytes": bpeak,
+                          **bmetrics[0], "launches": blaunches[0]}
+    log("[moe train] batched dispatch " + json.dumps(summary["batched"]))
+    if blaunches[0] != want:
+        failed.append(f"batched dispatch launches {blaunches[0]}")
+    if not math.isfinite(bmetrics[0]["loss"]):
+        failed.append(f"batched dispatch loss {bmetrics[0]['loss']}")
+    if failed:
+        raise AssertionError("moe train: " + "; ".join(failed))
+    return runs, summary
+
+
+def check_combine_training(dev):
+    """Phase 15 (b): ``SegmentSum`` (``ops.segment_reduce`` under autograd
+    on the card) at the combine's training shape, 8 experts x the capacity
+    of 4 x 2,048 tokens (C 2,568) bf16 rows of 4,096 into 8,192 tokens, two
+    live rows a token in random slots: the float32 sums bit-equal to the
+    plain version's (two terms), the rows' gradients bit-equal to plain
+    autograd's for the same float32 upstream gradient; forward + backward
+    timed by events and on the device alone beside plain autograd and
+    ``index_add`` in bf16 under autograd, and the bytes bound.  Returns the
+    shape record."""
+    import torch
+    from repro_torch.kernels.ops import segment_reduce
+    from repro_torch.models.moe import _capacity
+    from repro_torch.configs import mixtral_8x7b
+
+    moe = mixtral_8x7b.full_config().moe
+    t, d = MOE_TRAIN_BATCH * MOE_TRAIN_SEQ, 4096
+    n = moe.n_experts * _capacity(t, moe)
+    g = torch.Generator(device=dev).manual_seed(SEED + 15)
+    ids = torch.full((n,), t, dtype=torch.int32, device=dev)
+    slots = torch.randperm(n, generator=g, device=dev)[:2 * t]
+    ids[slots] = torch.arange(t, device=dev, dtype=torch.int32).repeat_interleave(2)
+    x = torch.randn(n, d, generator=g, device=dev).to(torch.bfloat16).requires_grad_()
+    up = torch.randn(t, d, generator=g, device=dev)
+    name = f"MoE combine, training: x bf16 ({n}, {d}), {2 * t} live rows, into {t} tokens"
+    got = segment_reduce(x, ids, t, backend="cuda")
+    if type(got.grad_fn).__name__ != "SegmentSumBackward":
+        raise AssertionError(f"{name}: grad_fn {got.grad_fn}")
+    plain = segment_reduce(x, ids, t, backend="torch")
+    same(f"({name}) float32 sums", got.detach(), plain.detach())
+    same(f"({name}) rows' gradient", torch.autograd.grad(got, x, up)[0],
+         torch.autograd.grad(plain, x, up)[0])
+    del got, plain
+    spill = torch.where(ids < t, ids, t).long()
+    fwd_bwd = lambda f: lambda: torch.autograd.grad(f(), x, up)  # noqa: E731
+    kern = fwd_bwd(lambda: segment_reduce(x, ids, t, backend="cuda"))
+    library = fwd_bwd(lambda: torch.zeros(t + 1, d, dtype=x.dtype, device=dev).index_add(
+        0, spill, x)[:t].float())
+    # forward: the live bf16 rows and every id read, the float32 sums
+    # written; backward: every id and the float32 upstream gradient read,
+    # every row's bf16 gradient written
+    nbytes = (2 * 2 * t * d + 4 * n + 4 * t * d) + (4 * n + 4 * t * d + 2 * n * d)
+    rec = {"case": name, "fwd_bwd": True, "ms": time_ms(kern),
+           "device_ms": device_time_ms(kern),
+           "plain_ms": time_ms(fwd_bwd(lambda: segment_reduce(x, ids, t, backend="torch"))),
+           "library_ms": time_ms(library), "library_device_ms": device_time_ms(library),
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    log("[moe train (b)] " + json.dumps(rec))
+    del x, up, ids, spill
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _idle_share(fn) -> dict:
+    """One call of ``fn`` traced by ``torch.profiler``: the device's busy ms
+    (the union of its operations' intervals), the call's host wall and the
+    idle share of that wall.  A marker kernel and a pause come first (a
+    session after the first may drop the events right after its start)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name)
+    busy, cur = 0.0, None
+    for a, b in spans:
+        if cur is None or a > cur[1]:
+            busy += 0 if cur is None else cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    busy = (busy + (cur[1] - cur[0] if cur else 0)) / 1e3
+    return {"traced_wall_ms": wall, "device_busy_ms": busy, "device_events": len(spans),
+            "idle_share": 1 - busy / wall}
+
+
+def train_xdeepfm(dev):
+    """Phase 15 (c): xDeepFM's train_batch cell
+    (``get_spec("xdeepfm").build_cell("train_batch", SINGLE_POD)``) at the
+    published size, 65,536 rows a step from ``recsys_batches``, staged on
+    the card: XDEEPFM_TRAIN_STEPS steps (walls on the device's timeline,
+    rows/s, peak, 0 host syncs in steps 2 on, launches: none, the lookups
+    being gathers), the last one traced for its idle share, and one more
+    keeping the CIN's products (its peak: what the recompute saves); then at
+    XDEEPFM_CHECK_ROWS rows the loss and every gradient leaf against the
+    reference's order written out plainly, the CIN's recompute bit-equal to
+    keeping its products, and the labels flipped (the control).  Returns
+    (launches, summary)."""
+    import warnings
+
+    import torch
+    from repro_torch.configs import SINGLE_POD, get_spec, xdeepfm
+    from repro_torch.data.pipeline import recsys_batches
+    from repro_torch.models import recsys
+    from repro_torch.models.recsys import bce_loss, xdeepfm_apply, xdeepfm_init
+    from repro_torch.train import adamw_init, tree_flatten
+
+    cell = get_spec("xdeepfm").build_cell("train_batch", SINGLE_POD)
+    cfg, rows = xdeepfm.CFG, cell.abstract_args[2].shape[0]
+    params = xdeepfm_init(torch.Generator(device=dev).manual_seed(SEED), cfg)
+    opt = adamw_init(params)
+    staged = [{k: torch.from_numpy(b[k]).to(dev) for k in ("sparse_ids", "labels")}
+              for b, _ in zip(recsys_batches(rows, cfg.n_sparse, cfg.field_vocabs(),
+                                             seed=SEED), range(XDEEPFM_TRAIN_STEPS))]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    events, metrics = [], []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        try:
+            for i, b in enumerate(staged[:-1]):
+                torch.cuda.set_sync_debug_mode("warn" if i else "default")
+                events.append(torch.cuda.Event(enable_timing=True))
+                events[-1].record()
+                params, opt, m = cell.step_fn(params, opt, b["sparse_ids"], b["labels"])
+                metrics.append(m)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    torch.cuda.synchronize()
+    walls = [a.elapsed_time(b) for a, b in zip(events, events[1:] + [end])]
+    last = staged[-1]
+    idle = _idle_share(lambda: metrics.append(cell.step_fn(
+        params, opt, last["sparse_ids"], last["labels"])[2]))
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    metrics = [{k: v.item() for k, v in m.items()} for m in metrics]
+    # what the CIN's recompute saves: one more step keeping its products
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        with _cin_kept():
+            cell.step_fn(params, opt, last["sparse_ids"], last["labels"])
+        torch.cuda.synchronize()
+        kept_peak = torch.cuda.max_memory_allocated(dev)
+    except torch.OutOfMemoryError:  # an answer too: keeping does not fit
+        kept_peak = "out of memory"
+    torch.cuda.empty_cache()
+    step_ms = sorted(walls[1:])[len(walls[1:]) // 2]
+    summary = {"rows": rows, "steps": len(metrics), "step_ms": walls,
+               "traced_step": idle, "step_ms_median_2_on": step_ms,
+               "rows_per_s": rows / step_ms * 1e3, "max_memory_allocated_bytes": peak,
+               "products_kept_max_memory_allocated_bytes": kept_peak,
+               "host_syncs_steps_2_on": _sync_sites(caught), "launches": launches,
+               "metrics": metrics}
+    log("[xdeepfm train] " + json.dumps(summary))
+    failed = []
+    if any(launches.values()):
+        failed.append(f"launches {launches}: the gathers imply none")
+    if summary["host_syncs_steps_2_on"]:
+        failed.append(f"host syncs {summary['host_syncs_steps_2_on']}")
+    if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+               for m in metrics):
+        failed.append(f"metrics {metrics}")
+    del staged, opt
+    torch.cuda.empty_cache()
+
+    # the checks at XDEEPFM_CHECK_ROWS rows, on the trained weights
+    b = next(recsys_batches(XDEEPFM_CHECK_ROWS, cfg.n_sparse, cfg.field_vocabs(),
+                            seed=SEED + 1))
+    ids, labels = (torch.from_numpy(b[k]).to(dev) for k in ("sparse_ids", "labels"))
+    leaves = tree_flatten(params)[0]
+
+    def grads(logits_fn, y):
+        loss = bce_loss(logits_fn(), y)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    port = grads(lambda: xdeepfm_apply(params, cfg, ids), labels)
+    want = grads(lambda: _xdeepfm_plain_logits(params, cfg, ids), labels)
+    flipped = grads(lambda: xdeepfm_apply(params, cfg, ids), 1 - labels)
+    # the CIN alone, recomputed and kept: the tables' gradients come from
+    # index_add_'s atomics, whose order differs from run to run on the card
+    x0 = torch.stack(recsys._lookup(params["tables"], ids), dim=1).detach()
+    cin_leaves = [x0.requires_grad_(), *tree_flatten([params["cin"],
+                                                      params["cin_out"]])[0]]
+    up = torch.randn(XDEEPFM_CHECK_ROWS, 1, generator=torch.Generator(
+        device=dev).manual_seed(SEED), device=dev)
+
+    def cin():
+        out = recsys._cin(params["cin"], params["cin_out"], x0)
+        return [out.detach(), *torch.autograd.grad(out, cin_leaves, up)]
+
+    recomputed = cin()
+    with _cin_kept():
+        kept = cin()
+    loss_rel = lambda a: abs(a[0].item() - want[0].item()) / abs(want[0].item())  # noqa: E731
+    grad_rel = lambda a: [_rel_l2(x, y) for x, y in zip(a[1], want[1])]  # noqa: E731
+    check = {"rows": XDEEPFM_CHECK_ROWS, "loss": port[0].item(),
+             "plain_loss": want[0].item(), "loss_rel": loss_rel(port),
+             "grad_rel_l2_max": max(grad_rel(port)), "leaves": len(leaves),
+             "cin_recompute_bit_equal": all(torch.equal(x, y)
+                                            for x, y in zip(recomputed, kept)),
+             "control_loss_rel": loss_rel(flipped),
+             "control_grad_rel_l2_max": max(grad_rel(flipped)),
+             "limit": XDEEPFM_TRAIN_TOL}
+    summary["check"] = check
+    log("[xdeepfm train] " + json.dumps(check))
+    if not (check["loss_rel"] <= XDEEPFM_TRAIN_TOL
+            and check["grad_rel_l2_max"] <= XDEEPFM_TRAIN_TOL):
+        failed.append(f"loss or gradients beyond {XDEEPFM_TRAIN_TOL}: {check}")
+    if not check["cin_recompute_bit_equal"]:
+        failed.append("the CIN's recompute is not bit-equal to keeping its products")
+    if not (check["control_loss_rel"] > XDEEPFM_TRAIN_TOL
+            and check["control_grad_rel_l2_max"] > XDEEPFM_TRAIN_TOL):
+        failed.append(f"the control (labels flipped) is within {XDEEPFM_TRAIN_TOL}")
+    del params, leaves, port, want, flipped, x0, cin_leaves, recomputed, kept
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("xdeepfm train: " + "; ".join(failed))
+    return launches, summary
+
+
+def _moe_train_cli():
+    """Phase 15 (d): ``python -m repro_torch.launch.train --arch
+    mixtral-8x7b --d-head 64 --steps 20`` through its ``main`` (the smoke
+    config, no remat: one launch of each kernel a layer a step).  Returns
+    (summary, launches)."""
+    from repro_torch.launch.train import main, smoke_config
+
+    text = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        rc = main(["--arch", "mixtral-8x7b", "--d-head", "64", "--steps", "20"])
+    launches = read_launches()
+    lines = [l for l in text.getvalue().splitlines() if l.startswith("[train]")]
+    out = {"rc": rc, "s": time.perf_counter() - t0, "lines": lines, "launches": launches}
+    log(f"[moe train (d)] rc {rc} in {out['s']:.1f} s, launches {launches}\n  "
+        + "\n  ".join(lines))
+    per_run = 20 * smoke_config("mixtral-8x7b").n_layers
+    want = {**{k: 0 for k in launches}, "flash_attention": per_run,
+            "segment_matmul": per_run}
+    if rc != 0 or launches != want or not any("done: final loss" in l for l in lines):
+        raise AssertionError(f"train CLI (mixtral-8x7b): rc {rc}, launches {launches}, "
+                             f"the code implies {want}")
+    return out, launches
+
+
+def train_moe_xdeepfm_phase(dev):
+    """Phase 15: (a) mixtral-8x7b training, (b) the combine's training
+    shape, (c) xDeepFM training, (d) the train CLI on mixtral's smoke
+    config.  Returns (launches by run, summary, the combine's record)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"device memory held at the phase's start: "
+        f"{torch.cuda.memory_allocated(dev):,} B")
+    launches, summary = train_moe(dev)
+    combine = check_combine_training(dev)
+    launches["xdeepfm_train"], summary["xdeepfm"] = train_xdeepfm(dev)
+    summary["cli"], launches["moe_train_cli"] = _moe_train_cli()
+    return launches, summary, combine
+
+
 def record(name, source, replaces, launches, max_err, shapes):
     head = shapes[0]
     rec = {
@@ -4168,6 +4683,9 @@ def main() -> int:
         _phase(14, "xDeepFM serving at its published size, then "
             "embedding_bag at a bag shape")
         xdeepfm_launches, xdeepfm, bag_shapes, bag_err = serve_xdeepfm(dev)
+        _phase(15, "MoE and xDeepFM training, mixtral-8x7b at full width and "
+            "xDeepFM at its published size")
+        train15_launches, train15, combine_train = train_moe_xdeepfm_phase(dev)
         starts = sorted(_PHASE_STARTS.items()) + [(None, time.perf_counter())]
         log("phase walls (s): " + json.dumps({n: round(b - a, 1) for (n, a), (_, b)
                                                in zip(starts, starts[1:])}))
@@ -4179,7 +4697,7 @@ def main() -> int:
                 "segment_reduce": segsum_launches, "serve": serve_launches,
                 **stream_launches, **ab_launches, **serve_svc_launches,
                 **train_launches, **gnn_launches, **moe_launches,
-                **xdeepfm_launches}
+                **xdeepfm_launches, **train15_launches}
     hll_shape = [s for s in checks["segment_max"][1]
                  if s["case"].startswith(("h:", "h-"))]
     # phase 12 (a): the autograd Functions, forward + backward
@@ -4190,7 +4708,8 @@ def main() -> int:
     # phases 13 (c) and 14: the combine's and the bag's shapes (the combine's
     # float32 sums are bit-equal to the plain version's)
     checks["segment_matmul"] = (max(checks["segment_matmul"][0], bag_err),
-                                checks["segment_matmul"][1] + combine_shapes + bag_shapes)
+                                checks["segment_matmul"][1] + combine_shapes + bag_shapes
+                                + [combine_train])
     kernels = [
         record("histogram", "src/repro_torch/kernels/csrc/histogram.cu",
                "src/repro/kernels/histogram.py:108",
@@ -4217,7 +4736,8 @@ def main() -> int:
     log(json.dumps({"sketch_tier_s": sketch_s, "algorithms_alone_ms": algo_ms,
                     "algorithms_alone_launches": alone_launches, "serve": serve,
                     "stream": stream, "ab_and_fused": ab, "service": service,
-                    "train": train, "gnn": gnn, "moe": moe, "xdeepfm": xdeepfm}))
+                    "train": train, "gnn": gnn, "moe": moe, "xdeepfm": xdeepfm,
+                    "train_moe_xdeepfm": train15}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,15 +3,14 @@ with a parallel dense residual branch (dense-MoE hybrid).
 
 35L d_model=7168 56H (kv=8) d_ff=4864 vocab=32000, MoE 128e top-2.
 
-The port of ``repro/configs/arctic_480b.py``: the same numbers, the
-reference's ``lm_spec`` aside (its ``ArchSpec`` comes with the launch
-slice)."""
+The port of ``repro/configs/arctic_480b.py``: the same numbers and ``SPEC``."""
 import dataclasses
 
 import torch
 
 from ..models.moe import MoEConfig
 from ..models.transformer import TransformerConfig
+from .common import lm_spec
 
 ARCH_ID = "arctic-480b"
 
@@ -31,6 +30,9 @@ def smoke_config() -> TransformerConfig:
         n_kv_heads=2, d_ff=96, vocab=128, dtype=torch.float32, remat=False,
         moe=MoEConfig(n_experts=8, top_k=2, d_ff=64, dense_residual_d_ff=64),
     )
+
+
+SPEC = lm_spec(ARCH_ID, full_config, smoke_config, full_attention_only=True)
 
 
 def optimized_config() -> TransformerConfig:

@@ -5,7 +5,7 @@ import torch
 
 from ..core.table import resolve_device
 from ..models import gnn as G
-from .common_gnn import GNNSpec
+from .common_gnn import gnn_spec
 
 ARCH_ID = "egnn"
 
@@ -33,4 +33,5 @@ def smoke(device="cuda"):
     return {"out_shape": tuple(out.shape)}
 
 
-SPEC = GNNSpec(ARCH_ID, make_cfg, G.egnn_init, G.egnn_apply, "graph_reg")
+SPEC = gnn_spec(ARCH_ID, make_cfg, G.egnn_init, G.egnn_apply,
+                "graph_reg", smoke)

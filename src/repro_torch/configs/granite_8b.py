@@ -4,6 +4,7 @@
 import torch
 
 from ..models.transformer import TransformerConfig
+from .common import lm_spec
 
 ARCH_ID = "granite-8b"
 
@@ -20,3 +21,6 @@ def smoke_config() -> TransformerConfig:
         name=ARCH_ID + "-smoke", n_layers=2, d_model=64, n_heads=8,
         n_kv_heads=2, d_ff=128, vocab=128, dtype=torch.float32, remat=False,
     )
+
+
+SPEC = lm_spec(ARCH_ID, full_config, smoke_config, full_attention_only=True)

@@ -10,7 +10,7 @@ import torch
 
 from ..core.table import resolve_device
 from ..models import gnn as G
-from .common_gnn import GNNSpec
+from .common_gnn import gnn_spec
 
 ARCH_ID = "graphsage-reddit"
 
@@ -44,5 +44,5 @@ def smoke(device="cuda"):
     return {"logits_shape": tuple(sel.shape)}
 
 
-SPEC = GNNSpec(ARCH_ID, make_cfg, G.graphsage_init, G.graphsage_apply,
-               "node_class")
+SPEC = gnn_spec(ARCH_ID, make_cfg, G.graphsage_init, G.graphsage_apply,
+                "node_class", smoke)

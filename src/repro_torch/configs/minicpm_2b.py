@@ -3,6 +3,8 @@ embeddings. 40L d_model=2304 36H (kv=36) d_ff=5760 vocab=122753."""
 import torch
 
 from ..models.transformer import TransformerConfig
+from ..train.optimizer import AdamWConfig
+from .common import lm_spec
 
 ARCH_ID = "minicpm-2b"
 
@@ -20,3 +22,10 @@ def smoke_config() -> TransformerConfig:
         n_kv_heads=6, d_ff=96, vocab=128, tie_embeddings=True,
         dtype=torch.float32, remat=False,
     )
+
+
+SPEC = lm_spec(
+    ARCH_ID, full_config, smoke_config, full_attention_only=True,
+    opt=AdamWConfig(lr=1e-2, schedule="wsd", warmup_steps=500,
+                    total_steps=10_000, decay_fraction=0.1),
+)

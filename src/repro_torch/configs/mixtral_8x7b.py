@@ -1,15 +1,14 @@
 """mixtral-8x7b [arXiv:2401.04088; hf]: 8-expert top-2 MoE + sliding-window
 attention. 32L d_model=4096 32H (kv=8) d_ff=14336 vocab=32000, SWA 4096.
 
-The port of ``repro/configs/mixtral_8x7b.py``: the same numbers, the
-reference's ``lm_spec`` aside (its ``ArchSpec`` comes with the launch
-slice)."""
+The port of ``repro/configs/mixtral_8x7b.py``: the same numbers and ``SPEC``."""
 import dataclasses
 
 import torch
 
 from ..models.moe import MoEConfig
 from ..models.transformer import TransformerConfig
+from .common import lm_spec
 
 ARCH_ID = "mixtral-8x7b"
 
@@ -29,6 +28,9 @@ def smoke_config() -> TransformerConfig:
         dtype=torch.float32, remat=False,
         moe=MoEConfig(n_experts=4, top_k=2, d_ff=96),
     )
+
+
+SPEC = lm_spec(ARCH_ID, full_config, smoke_config, full_attention_only=False)
 
 
 def optimized_config() -> TransformerConfig:

@@ -4,6 +4,7 @@
 import torch
 
 from ..models.transformer import TransformerConfig
+from .common import lm_spec
 
 ARCH_ID = "qwen2-72b"
 
@@ -22,3 +23,6 @@ def smoke_config() -> TransformerConfig:
         n_kv_heads=2, d_ff=160, vocab=128, qkv_bias=True, dtype=torch.float32,
         remat=False,
     )
+
+
+SPEC = lm_spec(ARCH_ID, full_config, smoke_config, full_attention_only=True)

@@ -8,7 +8,7 @@ import torch
 
 from ..core.table import resolve_device
 from ..models import gnn as G
-from .common_gnn import GNNSpec
+from .common_gnn import gnn_spec
 
 ARCH_ID = "schnet"
 
@@ -36,4 +36,5 @@ def smoke(device="cuda"):
     return {"energy_shape": tuple(e.shape)}
 
 
-SPEC = GNNSpec(ARCH_ID, make_cfg, G.schnet_init, G.schnet_apply, "graph_reg")
+SPEC = gnn_spec(ARCH_ID, make_cfg, G.schnet_init, G.schnet_apply,
+                "graph_reg", smoke)

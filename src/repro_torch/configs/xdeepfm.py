@@ -6,16 +6,22 @@ Embedding tables are the hot path: 38,190,000 rows x (10 + 1) float32,
 ``embedding_bag``, for bags of many ids, runs on the segment-sum kernel).  Shapes: train 65,536 / online
 512 / offline 262,144 / retrieval 1 x 10^6 (padded to 2^20).
 
-:func:`serve_fn` gives the serve step of each serve shape (``serve_p99``,
-``serve_bulk``: the click probabilities, the CIN in chunks of
-``recsys.CIN_CHUNK`` rows; ``retrieval_cand``: the scores of one query
-against the candidates).  The ``train_batch`` shape's step comes with the
-xDeepFM training slice; the reference's ``ArchSpec``, ``Cell`` and
-partition specs come with the launch slice.
+``SPEC`` is the reference's ``ArchSpec``: :func:`build_cell` for the four
+shapes, the parameters (and, to train, AdamW's state) on the meta device
+with their partition specs (:func:`_param_pspecs`: the tables' and linear
+weights' rows over the tp axis).  The ``train_batch`` step is the
+reference's body: ``bce_loss(xdeepfm_apply(...))``, its gradient with
+respect to every parameter (a table's is dense, autograd's ``index_add_``
+of the gathered rows' gradients, as ``jnp.take``'s is a scatter-add; the
+CIN's chunks recomputed in the backward, ``recsys._cin``) and AdamW under
+:data:`OPT` in place.  :func:`serve_fn` gives the serve step of each serve
+shape (``serve_p99``, ``serve_bulk``: the click probabilities, the CIN in
+chunks of ``recsys.CIN_CHUNK`` rows; ``retrieval_cand``: the scores of one
+query against the candidates), which is the serve cells' step.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -24,6 +30,8 @@ from ..core.table import resolve_device
 from ..models.recsys import (XDeepFMConfig, bce_loss, retrieval_scores,
                              xdeepfm_apply, xdeepfm_init)
 from ..train.optimizer import AdamWConfig
+from .common import (ArchSpec, Cell, MeshAxes, abstract_adamw, abstract_init,
+                     adamw_pspecs, meta_tensor, train_step_fn, tree_map_with_key)
 
 ARCH_ID = "xdeepfm"
 
@@ -53,6 +61,45 @@ def serve_fn(shape: str) -> Callable:
     return lambda params, ids: torch.sigmoid(xdeepfm_apply(params, CFG, ids))
 
 
+def _param_pspecs(mp: MeshAxes, a_params):
+    tp = mp.tp_axis
+
+    def spec(key, leaf):
+        if "tables/" in key or "linear/" in key:
+            return (tp, None)  # shard the huge vocab rows
+        return (None,) * leaf.dim()
+
+    return tree_map_with_key(spec, a_params)
+
+
+def build_cell(shape: str, mp: MeshAxes) -> Optional[Cell]:
+    info = SHAPES[shape]
+    a_params = abstract_init(xdeepfm_init, CFG)
+    p_specs = _param_pspecs(mp, a_params)
+    B = info["batch"]
+    a_ids = meta_tensor((B, CFG.n_sparse), torch.int32)
+    ids_spec = (mp.dp, None) if B > 1 else (None, None)
+
+    if info["kind"] == "train":
+        step = train_step_fn(lambda p, ids, labels: (
+            bce_loss(xdeepfm_apply(p, CFG, ids), labels), {}), OPT)
+        return Cell(arch=ARCH_ID, shape=shape, kind="train", step_fn=step,
+                    abstract_args=(a_params, abstract_adamw(a_params), a_ids,
+                                   meta_tensor((B,), torch.float32)),
+                    arg_pspecs=(p_specs, adamw_pspecs(p_specs), ids_spec, (mp.dp,)),
+                    donate=(0, 1))
+
+    if shape == "retrieval_cand":
+        return Cell(arch=ARCH_ID, shape=shape, kind="serve", step_fn=serve_fn(shape),
+                    abstract_args=(a_params, a_ids,
+                                   meta_tensor((info["n_cand"], CFG.embed_dim), torch.float32)),
+                    arg_pspecs=(p_specs, ids_spec, (mp.all_axes, None)),
+                    note=info.get("raw", ""))
+
+    return Cell(arch=ARCH_ID, shape=shape, kind="serve", step_fn=serve_fn(shape),
+                abstract_args=(a_params, a_ids), arg_pspecs=(p_specs, ids_spec))
+
+
 def smoke(device="cuda"):
     """The reference's smoke test at its sizes (6 fields of 64 ids, embed 8,
     CIN 16-16, MLP 32), weights drawn from seed 0 on ``device``, inputs
@@ -75,3 +122,7 @@ def smoke(device="cuda"):
     if scores.shape != (1, 256):
         raise AssertionError(f"xdeepfm smoke: scores {tuple(scores.shape)}")
     return {"loss": float(loss)}
+
+
+SPEC = ArchSpec(arch=ARCH_ID, family="recsys", shapes=tuple(SHAPES),
+                build_cell=build_cell, smoke=smoke)

@@ -24,7 +24,11 @@ i, j] = X^0[b,i,d] X^k[b,j,d]`` comes first, ``(B, D, m, H_k)``, the
 smallest intermediate any order leaves (m = 39 < H = 200), and one matrix
 product with ``W`` as ``(H, m H_k)`` compresses it.  Rows are independent,
 so :func:`_cin` runs in chunks of :data:`CIN_CHUNK` rows, which changes
-nothing of the function.  The two orders sum the same products in
+nothing of the function.  Under autograd each chunk runs under
+``torch.utils.checkpoint``: its outer products are recomputed in the
+backward rather than kept (at ``train_batch``'s 65,536 rows they would
+hold 44.9 GB), and the values and gradients are the same bits as one pass
+that keeps them.  Serving records no gradient and checkpoints nothing.  The two orders sum the same products in
 different orders: float32 results agree within rounding
 (``tests/test_torch_recsys.py`` states the tolerance).
 """
@@ -35,6 +39,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.ops import segment_reduce
 from .layers import linear, linear_init, mlp, mlp_init
@@ -155,8 +160,12 @@ def _cin_rows(p_cin: List[torch.Tensor], x0: torch.Tensor) -> torch.Tensor:
 
 def _cin(p_cin: List[torch.Tensor], cin_out: Dict, x0: torch.Tensor) -> torch.Tensor:
     """x0 ``(B, m, D)`` -> the CIN logit ``(B, 1)``, :data:`CIN_CHUNK` rows
-    a pass."""
-    pooled = torch.cat([_cin_rows(p_cin, x0[s:s + CIN_CHUNK])
+    a pass, each recomputed in the backward where autograd records."""
+    rows = _cin_rows
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x0, *p_cin)):
+        rows = lambda p, x: checkpoint(_cin_rows, p, x, use_reentrant=False,  # noqa: E731
+                                       preserve_rng_state=False)
+    pooled = torch.cat([rows(p_cin, x0[s:s + CIN_CHUNK])
                         for s in range(0, x0.shape[0], CIN_CHUNK)])
     return linear(cin_out, pooled)
 

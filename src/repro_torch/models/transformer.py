@@ -136,7 +136,11 @@ def _rope(x: torch.Tensor, rope: Tuple[torch.Tensor, torch.Tensor]) -> torch.Ten
 
 
 # the matrix products a "dots" layer saves: the dense layers' (no batch
-# dimension; attention's batched products are recomputed)
+# dimension).  Batched products are recomputed: attention's, and a MoE
+# layer's experts', whose ``torch.matmul`` over the leading E axis is
+# ``aten.bmm``.  A MoE layer's recomputed forward routes as the first did
+# (the same stable sorts, slots and combine ids from the same inputs), so
+# remat changes no bit of its gradients.
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 

@@ -1250,3 +1250,103 @@ def test_xdeepfm_serve_p99_on_the_card(dev):
     assert torch.allclose(got.cpu(), want, rtol=1e-6, atol=1e-7)
     del params
     assert math.isfinite(xdeepfm.smoke()["loss"])
+
+
+@pytest.mark.parametrize("config", ["mixtral_8x7b", "arctic_480b"])
+def test_moe_train_step_through_both_kernels_without_a_host_sync(dev, config):
+    """The train_4k cell's step (``lm_spec``) on each MoE smoke config with
+    heads of 128 (the kernel's; the smoke configs' are 8) and remat, 2 x 32
+    tokens: a first step (builds, cuBLAS), then two with every host sync an
+    error, through the attention and segment-sum kernels (each launched
+    twice a layer a step: forward and recompute); the same three steps from
+    the same weights through the plain path: each loss within 1e-4
+    relative (float32; the kernels sum in other orders)."""
+    import dataclasses
+    import importlib
+
+    from repro_torch.configs import SINGLE_POD
+    from repro_torch.configs.common import lm_spec
+    from repro_torch.convert import transformer_param_tree
+    from repro_torch.kernels.launches import read_launches, reset_launches
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train import adamw_init
+
+    mod = importlib.import_module(f"repro_torch.configs.{config}")
+    cfg = dataclasses.replace(mod.smoke_config(), d_head=128, remat=True)
+    cell = lm_spec(mod.ARCH_ID, lambda: cfg, mod.smoke_config,
+                   False).build_cell("train_4k", SINGLE_POD)
+    g = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (3, 2, 33), generator=g, device=dev)
+    runs = {}
+    for backend in ("cuda", "torch"):
+        model = Transformer(dataclasses.replace(cfg, kernel_backend=backend),
+                            device=dev, seed=0)
+        opt = adamw_init(transformer_param_tree(model))
+        losses, launches = [], []
+        for i in range(3):
+            torch.cuda.synchronize()
+            reset_launches()
+            torch.cuda.set_sync_debug_mode("error" if i else "default")
+            try:
+                model, opt, m = cell.step_fn(model, opt, toks[i, :, :-1], toks[i, :, 1:])
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            launches.append({k: v for k, v in read_launches().items() if v})
+            losses.append(m["loss"].item())
+        runs[backend] = (losses, launches)
+    want = {"flash_attention": 2 * cfg.n_layers, "segment_matmul": 2 * cfg.n_layers}
+    assert runs["cuda"][1] == [want] * 3 and runs["torch"][1] == [{}] * 3
+    assert all(math.isfinite(x) for x in runs["cuda"][0])
+    for got, plain in zip(runs["cuda"][0], runs["torch"][0]):
+        assert abs(got - plain) <= 1e-4 * abs(plain), (runs["cuda"][0], runs["torch"][0])
+
+
+def test_xdeepfm_train_cell_on_the_card(dev):
+    """xDeepFM's train_batch cell at the smoke widths (``CFG`` patched),
+    512 rows: a first step, then two with every host sync an error, no
+    kernel launch (the lookups are gathers); the same three steps on the
+    CPU from the same weights, which ``test_torch_configs.py`` holds to the
+    reference: each loss and norm within 1e-5 relative, the weights within
+    1e-5 relative or twice the steps' learning rates (a table row's
+    gradient sums in another order: ``index_add_`` with atomics)."""
+    from repro_torch.configs import SINGLE_POD, xdeepfm
+    from repro_torch.models.recsys import XDeepFMConfig, xdeepfm_init
+    from repro_torch.train import adamw_init, tree_flatten, tree_unflatten
+
+    cfg = XDeepFMConfig(name="xdeepfm", n_sparse=6, embed_dim=8, cin_layers=(16, 16),
+                        mlp_dims=(32,), vocab_sizes=(64,) * 6)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(xdeepfm, "CFG", cfg)
+        cell = xdeepfm.build_cell("train_batch", SINGLE_POD)
+        g = torch.Generator().manual_seed(3)
+        ids = torch.randint(0, 64, (3, 512, 6), generator=g, dtype=torch.int32)
+        labels = torch.randint(0, 2, (3, 512), generator=g).float()
+        start = xdeepfm_init(torch.Generator().manual_seed(0), cfg)
+        runs = {}
+        for where in (dev, torch.device("cpu")):
+            leaves, treedef = tree_flatten(start)
+            params = tree_unflatten(treedef, [x.clone().to(where) for x in leaves])
+            opt = adamw_init(params)
+            batch = (ids.to(where), labels.to(where))
+            before = segsum_kernel.LAUNCHES
+            metrics = []
+            for i in range(3):
+                if where.type == "cuda":
+                    torch.cuda.synchronize()
+                    torch.cuda.set_sync_debug_mode("error" if i else "default")
+                try:
+                    params, opt, m = cell.step_fn(params, opt, batch[0][i], batch[1][i])
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                metrics.append({k: v.item() for k, v in m.items()})
+            assert segsum_kernel.LAUNCHES == before
+            runs[where.type] = (metrics, [x.detach().cpu() for x in tree_flatten(params)[0]])
+    (got_m, got_p), (want_m, want_p) = runs["cuda"], runs["cpu"]
+    for a, b in zip(got_m, want_m):
+        assert a["lr"] == b["lr"]
+        for k in ("loss", "grad_norm"):
+            assert abs(a[k] - b[k]) <= 1e-5 * abs(b[k]), (k, a, b)
+    lr = sum(m["lr"] for m in want_m)
+    for a, b in zip(got_p, want_p, strict=True):
+        assert bool(((a - b).abs() <= torch.maximum(1e-5 * b.abs(),
+                                                    torch.tensor(2 * lr))).all())

@@ -28,7 +28,9 @@ its ``"xla"`` path.  Held here, each with its tolerance:
   leaf within 1e-5 of its largest magnitude (``test_torch_train.py``'s);
 * ``convert`` both ways for a MoE training state: bit-equal leaves;
 * the configs' numbers letter for letter, and the train CLI on the CPU
-  (``test_torch_train.py`` runs it on mixtral's smoke config).
+  (``test_torch_train.py`` runs it on mixtral's smoke config);
+* each smoke config (and its batched dispatch) under remat ``"nothing"``
+  and ``"dots"``: the loss, metrics and gradients bit-equal to remat off.
 """
 import dataclasses
 
@@ -451,3 +453,30 @@ def test_drawn_moe_weights_follow_the_reference_initialisers():
         np.testing.assert_allclose(w.std().item(), d_in ** -0.5, rtol=0.1)
     assert not hasattr(model, "w_gate")
     assert not model.expert_up.requires_grad
+
+
+@pytest.mark.parametrize("policy", ["nothing", "dots"])
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_moe_remat_gradients_bit_equal(name, policy):
+    """A MoE layer under remat (the full configs' ``remat=True``): the
+    recomputed forward routes as the first (the same sorts, slots and
+    combine ids), so the loss, its metrics and every gradient are the bits
+    of the run without remat; under ``"dots"`` the experts' batched
+    products (``aten.bmm``) are recomputed, the dense ones kept."""
+    ref_cfg = dataclasses.replace(CONFIGS[name](), attn_backend="xla")
+    params = _numpy(T.init_params(jax.random.key(0), ref_cfg))
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, ref_cfg.vocab, (2, 13)).astype(np.int32))
+    out = {}
+    for remat in (False, True):
+        cfg = dataclasses.replace(_port_cfg(ref_cfg), remat=remat, remat_policy=policy)
+        model = transformer_params_from_numpy(params, cfg, "cpu")
+        leaves = tree_flatten(transformer_param_tree(model))[0]
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        loss, metrics = PT.loss_fn(model, toks[:, :-1], toks[:, 1:])
+        out[remat] = (loss, metrics, torch.autograd.grad(loss, leaves))
+    (l0, m0, g0), (l1, m1, g1) = out[False], out[True]
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(m0[k], m1[k]) for k in m0)
+    assert len(g0) == len(g1) and all(torch.equal(a, b) for a, b in zip(g0, g1))

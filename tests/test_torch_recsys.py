@@ -184,6 +184,41 @@ def test_cin_chunks_equal_one_pass(chunk, monkeypatch):
                                whole.numpy(), rtol=1e-6, atol=1e-7)
 
 
+@pytest.mark.parametrize("chunk", [5, 32])
+def test_cin_recompute_bit_equal_to_keeping_its_products(chunk, monkeypatch):
+    """Under autograd each CIN chunk runs under ``torch.utils.checkpoint``
+    (its outer products recomputed in the backward); with the chunk smaller
+    than the batch and not, the CIN logit and the gradients of its input
+    and weights are the bits of the same chunks with nothing recomputed.
+    Without grad no checkpoint runs."""
+    _, _, cfg, tp = _pair(SMOKE)
+    monkeypatch.setattr(PR, "CIN_CHUNK", chunk)
+    rng = np.random.default_rng(9)
+    x0 = torch.from_numpy(rng.standard_normal((23, cfg.n_sparse, cfg.embed_dim))
+                          .astype(np.float32)).requires_grad_()
+    weights = [*tp["cin"], tp["cin_out"]["w"]]
+    for w in weights:
+        w.requires_grad_(True)
+    up = torch.from_numpy(rng.standard_normal((23, 1)).astype(np.float32))
+    calls = []
+    checkpoint = PR.checkpoint
+    monkeypatch.setattr(PR, "checkpoint", lambda *a, **kw: calls.append(1) or
+                        checkpoint(*a, **kw))
+    got = PR._cin(tp["cin"], tp["cin_out"], x0)
+    assert len(calls) == -(-23 // chunk)
+    want = PR.linear(tp["cin_out"], torch.cat([
+        PR._cin_rows(tp["cin"], x0[s:s + chunk]) for s in range(0, 23, chunk)]))
+    assert torch.equal(got, want)
+    for a, b in zip(torch.autograd.grad(got, [x0, *weights], up),
+                    torch.autograd.grad(want, [x0, *weights], up), strict=True):
+        assert torch.equal(a, b)
+    with torch.no_grad():
+        assert torch.equal(PR._cin(tp["cin"], tp["cin_out"], x0), want)
+    monkeypatch.setattr(PR, "checkpoint", None)  # serving never reaches it
+    with torch.no_grad():
+        PR._cin(tp["cin"], tp["cin_out"], x0)
+
+
 def test_params_carry_both_ways():
     _, params, _, tp = _pair(SMOKE)
     want = jax.tree_util.tree_leaves(_numpy(params))

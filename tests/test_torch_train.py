@@ -370,6 +370,31 @@ def test_schedules_match_reference(schedule):
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-12)
 
 
+def test_adamw_slices_of_a_large_leaf_bit_equal(monkeypatch):
+    """A leaf over ``ADAMW_SLICE`` elements updates in slices of its
+    leading axis (bf16 and float32 leaves, a 0-d leaf, float32 and bf16
+    moments): three steps bit-equal to the whole-leaf update."""
+    def run(slice_elems, state_dtype):
+        monkeypatch.setattr(port_opt, "ADAMW_SLICE", slice_elems)
+        g = torch.Generator().manual_seed(0)
+        params = {"a": torch.randn(7, 5, 3, generator=g).to(torch.bfloat16),
+                  "b": torch.randn(9, 4, generator=g), "c": torch.randn((), generator=g)}
+        state = adamw_init(params, state_dtype)
+        for _ in range(3):
+            grads = {k: torch.randn(v.shape, generator=g).to(v.dtype)
+                     for k, v in params.items()}
+            adamw_update(grads, state, params, AdamWConfig(warmup_steps=1))
+        return tree_flatten({"params": params, "opt": state})[0]
+
+    assert port_opt._slices(torch.empty(7, 5, 3)) == [(0, 7)]
+    monkeypatch.setattr(port_opt, "ADAMW_SLICE", 16)
+    assert port_opt._slices(torch.empty(7, 5, 3)) == [(i, i + 1) for i in range(7)]
+    assert port_opt._slices(torch.empty(9, 4)) == [(0, 4), (4, 8), (8, 9)]
+    for state_dtype in ("float32", "bfloat16"):
+        whole, sliced = run(1 << 28, state_dtype), run(16, state_dtype)
+        assert all(torch.equal(a, b) for a, b in zip(whole, sliced, strict=True))
+
+
 def test_adamw_decreases_quadratic():
     """``tests/test_substrate.py:242`` for the port."""
     cfg = AdamWConfig(lr=0.1, weight_decay=0.0, warmup_steps=0,

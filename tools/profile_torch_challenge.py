@@ -68,6 +68,22 @@ version recomputed and differentiated), of the optimizer
 counts under the backward or the optimizer when the profiler's CPU range
 around those calls (added here, not in the port) launched it.
 
+MoE training, ``moe_train``: one step of mixtral-8x7b's train_4k cell at
+full width cut to ``chip_smoke.py``'s 3 layers, 4 x 2,048 tokens, remat
+"nothing", the reference's LM AdamW (the model and its state built when the
+phase comes, and freed after it).  Its record adds the device time of the
+attention kernel (forward, and again under remat), of the plain attention's
+backward, of the segment-sum kernel (the combine, forward and recomputed)
+and of its backward (``SegmentSum.backward``, a gather), of the expert
+SwiGLUs' forward products (recomputed too; their backward products count
+under the matrix products), of the dispatch, of AdamW and of the rest.
+xDeepFM training, ``xdeepfm_train``: one step of its train_batch cell at
+the published size (65,536 rows): the CIN's products (``_cin_rows``, its
+forward and its recompute; the backward's products under the matrix
+products), the gathers (``_lookup``) and their gradient (autograd's
+``index_add_``, by kernel name), AdamW over the 1.68 GB of tables and the
+rest.
+
 GNN training, ``gnn_<config>_<shape>``: one training step of
 ``configs/<config>`` (schnet, pna, egnn, graphsage_reddit) at its published
 widths on ``chip_smoke.py``'s phase-12 graph of ``<shape>`` (molecule,
@@ -88,6 +104,7 @@ rest.  ``gnn_graphsage_reddit_ogb_products`` needs
     python3 tools/profile_torch_challenge.py --phases lm_train --reps 3
     python3 tools/profile_torch_challenge.py --phases moe_prefill moe_decode
     python3 tools/profile_torch_challenge.py --phases gnn_pna_molecule gnn_pna_minibatch_lg
+    python3 tools/profile_torch_challenge.py --phases moe_train xdeepfm_train --reps 1
 """
 from __future__ import annotations
 
@@ -185,7 +202,10 @@ RANGES = {"plain_attention_backward": "plain attention backward",
           "adamw_update": "optimizer",
           "moe_dispatch": "MoE dispatch",
           "moe_experts": "expert matmuls",
-          "moe_combine": "segment-sum kernel"}
+          "moe_combine": "segment-sum kernel",
+          "segment_sum_backward": "segment-sum backward (gather)",
+          "cin_products": "CIN products (forward, recompute)",
+          "gathers": "gathers"}
 
 
 def _ranged_kernel_ms(events) -> dict:
@@ -215,7 +235,8 @@ def _family(kernel_name: str) -> str:
                       ("segment-max kernel", ("segmax_",)),
                       ("histogram kernel", ("hist_private", "hist_scatter")),
                       ("Count-Min kernel", ("cms_cluster", "cms_cooperative")),
-                      ("matmul", ("gemm", "nvjet", "cutlass", "xmma"))):
+                      ("matmul", ("gemm", "nvjet", "cutlass", "xmma")),
+                      ("index_add (gathers' gradient)", ("indexfunc",))):
         if any(key in name for key in keys):
             return fam
     return "other"
@@ -232,11 +253,13 @@ KERNEL_PHASES = tuple(f"{k}{s}" for k in ("segmax_vxm", "hll_fold", "cms_fold",
 LM_PHASES = ("lm_prefill", "lm_decode")
 MOE_PHASES = ("moe_prefill", "moe_decode")
 TRAIN_PHASES = ("lm_train",)
+# built when their turn comes and freed after it: each holds most of the card
+LAZY_PHASES = ("moe_train", "xdeepfm_train")
 GNN_PHASES = tuple(f"gnn_{c}_{s}" for s in ("molecule", "full_graph_sm", "minibatch_lg")
                    for c in ("schnet", "pna", "egnn", "graphsage_reddit")
                    ) + ("gnn_graphsage_reddit_ogb_products",)
 PHASES = (TABLE_PHASES + KERNEL_PHASES + LM_PHASES + MOE_PHASES + TRAIN_PHASES
-          + GNN_PHASES)
+          + GNN_PHASES + LAZY_PHASES)
 CALLS = 20  # back-to-back calls per kernel phase
 LM_BATCH, LM_PROMPT, LM_SLOTS, LM_STEPS = 4, 2048, 2080, 8
 MOE_LAYERS, MOE_BATCH, MOE_PROMPT, MOE_SLOTS = 8, 2, 6144, 6176  # chip_smoke's
@@ -527,6 +550,74 @@ def train_phases(dev):
     return {"lm_train": lambda: trainer.run(state, batches, 1, log_every=0)}
 
 
+def _ranged(name, fn):
+    import torch
+
+    def call(*args, **kw):
+        with torch.profiler.record_function(name):
+            return fn(*args, **kw)
+    return call
+
+
+def moe_train_phase(dev):
+    """One step a call of mixtral-8x7b's train_4k cell cut to
+    ``chip_smoke.MOE_TRAIN_LAYERS``, on one batch of ``lm_batches`` staged
+    on the card; the state advances from call to call."""
+    import torch
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+    import chip_smoke
+    from repro_torch.configs import common
+    from repro_torch.convert import transformer_param_tree
+    from repro_torch.data.pipeline import lm_batches
+    from repro_torch.kernels import flash_attention, segment_matmul
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train import adamw_init
+
+    flash_attention.FlashAttention.backward = staticmethod(_ranged(
+        "plain_attention_backward", flash_attention.FlashAttention.backward))
+    segment_matmul.SegmentSum.backward = staticmethod(_ranged(
+        "segment_sum_backward", segment_matmul.SegmentSum.backward))
+    common.adamw_update = _ranged("adamw_update", common.adamw_update)
+    moe.moe_apply_grouped = _ranged("moe_dispatch", moe.moe_apply_grouped)
+    moe._experts = _ranged("moe_experts", moe._experts)
+    moe.segment_reduce = _ranged("moe_combine", moe.segment_reduce)
+    cell = chip_smoke._moe_train_cell("full_config", chip_smoke.MOE_TRAIN_LAYERS)
+    cfg = cell.abstract_args[0].cfg
+    model = Transformer(cfg, device=dev, seed=0)
+    opt = adamw_init(transformer_param_tree(model))
+    b = next(lm_batches(chip_smoke.MOE_TRAIN_BATCH, chip_smoke.MOE_TRAIN_SEQ,
+                        cfg.vocab, seed=0))
+    tokens, labels = (torch.from_numpy(b[k]).to(dev) for k in ("tokens", "labels"))
+    print(json.dumps({"model": cfg.name, "layers": cfg.n_layers,
+                      "params": cfg.n_params, "batch": chip_smoke.MOE_TRAIN_BATCH,
+                      "seq": chip_smoke.MOE_TRAIN_SEQ, "remat": cfg.remat_policy}))
+    return lambda: cell.step_fn(model, opt, tokens, labels)
+
+
+def xdeepfm_train_phase(dev):
+    """One step a call of xDeepFM's train_batch cell at the published size,
+    on one batch of ``recsys_batches`` staged on the card."""
+    import torch
+    from repro_torch.configs import SINGLE_POD, common, get_spec, xdeepfm
+    from repro_torch.data.pipeline import recsys_batches
+    from repro_torch.models import recsys
+    from repro_torch.train import adamw_init
+
+    common.adamw_update = _ranged("adamw_update", common.adamw_update)
+    recsys._cin_rows = _ranged("cin_products", recsys._cin_rows)
+    recsys._lookup = _ranged("gathers", recsys._lookup)
+    cell = get_spec("xdeepfm").build_cell("train_batch", SINGLE_POD)
+    cfg, rows = xdeepfm.CFG, cell.abstract_args[2].shape[0]
+    params = recsys.xdeepfm_init(torch.Generator(device=dev).manual_seed(0), cfg)
+    opt = adamw_init(params)
+    b = next(recsys_batches(rows, cfg.n_sparse, cfg.field_vocabs(), seed=0))
+    ids, labels = (torch.from_numpy(b[k]).to(dev) for k in ("sparse_ids", "labels"))
+    print(json.dumps({"model": cfg.name, "rows": rows}))
+    return lambda: cell.step_fn(params, opt, ids, labels)
+
+
 def gnn_phases(names, dev):
     """One training step a call of each named ``gnn_<config>_<shape>``, on
     the graph ``chip_smoke.py``'s phase 12 draws (the sampler over the
@@ -589,10 +680,17 @@ def main(argv=None) -> int:
     gnn = [n for n in args.phases if n in GNN_PHASES]
     if gnn:
         phases.update(gnn_phases(gnn, dev))
+    lazy = {"moe_train": moe_train_phase, "xdeepfm_train": xdeepfm_train_phase}
     for name in args.phases:
         calls = CALLS if name in KERNEL_PHASES else None
-        print(json.dumps(profile_phase(name, phases[name], args.reps, args.top,
-                                       calls)), flush=True)
+        fn = lazy[name](dev) if name in lazy else phases[name]
+        print(json.dumps(profile_phase(name, fn, args.reps, args.top, calls)),
+              flush=True)
+        if name in lazy:
+            del fn
+            import gc
+            gc.collect()
+            torch.cuda.empty_cache()
     return 0
 
 
